@@ -1,0 +1,348 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (sage_slam_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which exits non-zero on failure:
+
+1. device: require CUDA, print the card's name and power limit, switch
+   TF32 off and check it;
+2. build: compile every CUDA source of the port with nvcc;
+3. kernels vs plain: each kernel's wrapper on the card against its plain
+   PyTorch version on the same inputs, at the shapes the window-BA path
+   gives it, binary and soft gates;
+4. main path: the window-BA step (run_ba, 10 LM iterations) at the bench
+   point (K=8, 64x80, CS=FS=16, L=4, N=3072, 24+24 ring edges); each
+   kernel's launch count is read around that run alone; the result is
+   checked for finiteness and descent, one linearize on the card is held
+   against one on the CPU, and a small problem's run_ba against its CPU run;
+5. times: kernel, plain and library-call ms at the bench shape beside the
+   kernel's bound, and ms per 10-iteration run_ba step (CUDA events and
+   host clock after warm-up);
+6. a JSON line listing every kernel, then the card line, then the last
+   line ``{"ok": true, "device": {...}}``.
+
+Imports neither JAX nor the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# Published peaks (NVIDIA data sheets): memory bytes/s, FP32 non-tensor FLOP/s.
+PEAKS = (
+    ("H100 PCIe", 2.0e12, 51e12),
+    ("H100 NVL", 3.9e12, 60e12),
+    ("H100", 3.35e12, 67e12),  # SXM (HBM3), the default entry
+    ("H200", 4.8e12, 67e12),
+)
+ROOT = os.path.dirname(os.path.abspath(__file__))
+WEIGHTS = (10.0, 9.0, 8.0, 7.0)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def say(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def peaks_for(name: str):
+    for key, bw, flops in PEAKS:
+        if key in name:
+            return key, bw, flops
+    return "H100 (assumed)", 3.35e12, 67e12
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of fn() over reps launches (CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def reduce_inputs(e, lv, c, n, dim, soft, seed, dev):
+    rng = np.random.default_rng(seed)
+    gate = rng.random((e, n)).astype(np.float32)
+    if not soft:
+        gate = (gate > 0.2).astype(np.float32)
+    arrays = (
+        rng.standard_normal((e, lv, 3 * c, n)).astype(np.float32),
+        rng.standard_normal((e, lv, c, n)).astype(np.float32),
+        gate,
+        rng.standard_normal((e, dim, n)).astype(np.float32),
+        rng.standard_normal((e, dim, n)).astype(np.float32),
+    )
+    return tuple(torch.from_numpy(a).to(dev) for a in arrays)
+
+
+def compare_reduce(out, ref, binary: bool, label: str):
+    """test_pallas.py's tolerances: ata/atb rtol 1e-4 + atol 1e-6 max|ata|,
+    err rtol 2e-5, n_inl exact for a binary gate (rtol 1e-5 for a soft one).
+    Returns the largest absolute difference over the four outputs and the
+    largest one relative to its output's max |value| (ata entries reach
+    ~1e6 on random inputs; the tolerances above are what decide)."""
+    ata, atb, err, n_inl = (x.double().cpu().numpy() for x in out)
+    ata_r, atb_r, err_r, n_r = (x.double().cpu().numpy() for x in ref)
+    scale = float(np.abs(ata_r).max())
+    np.testing.assert_allclose(ata, ata_r, rtol=1e-4, atol=1e-6 * scale, err_msg=label)
+    np.testing.assert_allclose(atb, atb_r, rtol=1e-4, atol=1e-6 * scale, err_msg=label)
+    np.testing.assert_allclose(err, err_r, rtol=2e-5, err_msg=label)
+    if binary:
+        np.testing.assert_array_equal(n_inl, n_r, err_msg=label)
+    else:
+        np.testing.assert_allclose(n_inl, n_r, rtol=1e-5, err_msg=label)
+    if not np.array_equal(ata, np.swapaxes(ata, -1, -2)):
+        fail(f"{label}: kernel ata is not bit-symmetric")
+    pairs = ((ata, ata_r), (atb, atb_r), (err, err_r), (n_inl, n_r))
+    abs_err = max(float(np.abs(a - b).max()) for a, b in pairs)
+    rel_err = max(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)) for a, b in pairs)
+    return abs_err, rel_err
+
+
+def main() -> None:
+    # ---- 1. device ----
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false; this smoke run needs a GPU")
+    sys.path.insert(0, ROOT)
+    from sage_slam_tpu_torch import _build, convert, synthetic
+    from sage_slam_tpu_torch.config import MapperConfig
+    from sage_slam_tpu_torch.device import set_f32_precision
+    from sage_slam_tpu_torch.ops import photo_reduce as pr
+    from sage_slam_tpu_torch.ops import photometric
+    from sage_slam_tpu_torch.solver import ba
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    say(f"card: {card}")
+    say(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    set_f32_precision()
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        fail("TF32 is still allowed after set_f32_precision()")
+    peak_key, peak_bw, peak_flops = peaks_for(kind)
+    say(f"peaks used for bounds: {peak_key}: {peak_bw / 1e12} TB/s, "
+        f"{peak_flops / 1e12} TFLOP/s FP32")
+
+    # ---- 2. build ----
+    t0 = time.perf_counter()
+    built = _build.build()
+    say(f"build: {len(built)} source(s) compiled in {time.perf_counter() - t0:.2f} s")
+    for name, (secs, log) in built.items():
+        say(f"build {name}: {secs:.2f} s")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                say(f"  ptxas {name}: {line.strip()}")
+
+    # ---- 3. kernel vs plain ----
+    checks = [
+        ((3, 4, 16, 512, 29), "test_pallas shape"),
+        ((24, 4, 16, 3072, 29), "bench shape"),
+        ((4, 4, 16, 1000, 17), "ragged N=1000, dim=17"),
+    ]
+    max_err = max_rel = 0.0
+    before = pr.photo_reduce.launches
+    for i, ((e, lv, c, n, dim), label) in enumerate(checks):
+        ratios = tuple((0.5**lvl, 0.5**lvl) for lvl in range(lv))
+        for soft in (False, True):
+            ins = reduce_inputs(e, lv, c, n, dim, soft, seed=10 + i, dev=dev)
+            out = pr.photo_reduce(*ins, WEIGHTS, ratios)
+            torch.cuda.synchronize()
+            ref = pr.photo_reduce_ref(*ins, WEIGHTS, ratios)
+            tag = f"{label} {'soft' if soft else 'binary'} gate"
+            abs_err, rel_err = compare_reduce(out, ref, not soft, tag)
+            max_err, max_rel = max(max_err, abs_err), max(max_rel, rel_err)
+            say(f"kernel vs plain: photo_reduce {tag} E={e} L={lv} C={c} N={n} dim={dim}: ok")
+    if pr.photo_reduce.launches != before + 2 * len(checks):
+        fail("photo_reduce launch count did not rise with its launches")
+
+    # ---- 4. main path ----
+    cfg = MapperConfig()
+    variables, problem, pyr = synthetic.bench_problem(device=dev)
+    k = variables.num_kf
+    update_mask = torch.ones(k, device=dev)
+    err0 = float(ba.total_error(variables, problem, pyr, cfg))
+    torch.cuda.synchronize()
+    pr.photo_reduce.launches = 0
+    t0 = time.perf_counter()
+    v_out, err, iters, converged = ba.run_ba(
+        variables, problem, pyr, cfg, update_mask, max_iters=10
+    )
+    torch.cuda.synchronize()
+    first_run_s = time.perf_counter() - t0
+    launches = {"photo_reduce": pr.photo_reduce.launches}
+    say(f"main path: run_ba K={k} E=24+24 N=3072 iterations={iters} "
+        f"converged={converged} error {err0:.6g} -> {float(err):.6g} "
+        f"(first run {first_run_s:.3f} s); launches {launches}")
+    for name, count in launches.items():
+        if count == 0:
+            fail(f"kernel {name} was not launched on the main path")
+    if launches["photo_reduce"] != iters:
+        fail(f"photo_reduce launched {launches['photo_reduce']} times for {iters} iterations")
+    for t in (v_out.pose.rot, v_out.pose.trans, v_out.code, v_out.scale, err):
+        if not bool(torch.isfinite(t).all()):
+            fail("run_ba returned non-finite values")
+    if v_out.code.shape != (k, 16) or v_out.pose.rot.shape != (k, 3, 3):
+        fail("run_ba returned variables of the wrong shape")
+    if not float(err) <= err0:
+        fail(f"run_ba raised the error: {err0} -> {float(err)}")
+
+    # one linearize on the card against one on the CPU (plain reduce), same inputs
+    prepared = ba.prepare_problem(problem, pyr)
+    h_g, b_g, e_g = ba.linearize(variables, prepared, pyr, cfg)
+    cpu_problem = convert.to_device(prepared, "cpu")
+    cpu_vars = convert.to_device(variables, "cpu")
+    h_c, b_c, e_c = ba.linearize(cpu_vars, cpu_problem, pyr, cfg)
+    scale = float(h_c.abs().max())
+    np.testing.assert_allclose(h_g.cpu().numpy(), h_c.numpy(), rtol=1e-4, atol=1e-5 * scale)
+    np.testing.assert_allclose(b_g.cpu().numpy(), b_c.numpy(), rtol=1e-4, atol=1e-5 * scale)
+    np.testing.assert_allclose(float(e_g), float(e_c), rtol=1e-4)
+    say(f"linearize card vs CPU: max|dH| {float((h_g.cpu() - h_c).abs().max()):.4g} "
+        f"of max|H| {scale:.4g}; error {float(e_g):.8g} vs {float(e_c):.8g}: ok")
+
+    # a small problem's whole run_ba on the card against the CPU
+    gv, gp, gpyr = synthetic.graft_problem(device="cpu")
+    out_c = ba.run_ba(gv, gp, gpyr, cfg, torch.ones(gv.num_kf), max_iters=10)
+    out_g = ba.run_ba(
+        convert.to_device(gv, dev), convert.to_device(gp, dev), gpyr, cfg,
+        torch.ones(gv.num_kf, device=dev), max_iters=10,
+    )
+    if (out_g[2], out_g[3]) != (out_c[2], out_c[3]):
+        fail(f"graft run_ba iterations/converged differ: card {out_g[2:]} cpu {out_c[2:]}")
+    np.testing.assert_allclose(
+        out_g[0].pose.trans.cpu().numpy(), out_c[0].pose.trans.numpy(), atol=2e-6
+    )
+    np.testing.assert_allclose(out_g[0].code.cpu().numpy(), out_c[0].code.numpy(), atol=1e-6)
+    say(f"graft problem run_ba card vs CPU: iterations {out_g[2]}, error "
+        f"{float(out_g[1]):.6g} vs {float(out_c[1]):.6g}: ok")
+
+    # the kernel on the main path's own inputs (one linearization's prep)
+    pe = prepared.photo_edges
+    kf0, fr1, shared = ba._photo_inputs(prepared.window, pe)
+    prep = photometric.photo_prep(
+        ba._edge_pose(variables, pe.i0), ba._edge_pose(variables, pe.i1),
+        variables.code[pe.i0], variables.scale[pe.i0], kf0, fr1, shared,
+        pyr, cfg.dpt_eps, soft=cfg.soft_inlier_gate,
+    )
+    ratios = photometric.level_ratios(pyr)
+    weights = tuple(cfg.photo_factor_weights)
+    out = pr.photo_reduce(*prep, weights, ratios)
+    ref = pr.photo_reduce_ref(*prep, weights, ratios)
+    abs_err, rel_err = compare_reduce(out, ref, False, "main-path prep inputs")
+    max_err, max_rel = max(max_err, abs_err), max(max_rel, rel_err)
+    say("kernel vs plain: photo_reduce on the main path's prep inputs "
+        f"{tuple(prep[0].shape)}: ok")
+
+    # ---- 5. times ----
+    fgs, f0, gate, kx, ky = prep
+    e, lv, c3, n = fgs.shape
+    dim = kx.shape[1]
+    in_bytes = sum(t.numel() * t.element_size() for t in prep)
+    out_bytes = 4 * (e * dim * dim + e * dim + 2 * e)
+    npairs = dim * (dim + 1) // 2
+    flops = e * n * (lv * (c3 // 3) * 13 + npairs * 10 + dim * 4 + 2)
+    bound_ms = max((in_bytes + out_bytes) / peak_bw, flops / peak_flops) * 1e3
+    bound_by = "bytes" if (in_bytes + out_bytes) / peak_bw >= flops / peak_flops else "operations"
+
+    def run_kernel():
+        pr.photo_reduce(fgs, f0, gate, kx, ky, weights, ratios)
+
+    def run_plain():
+        pr.photo_reduce_ref(fgs, f0, gate, kx, ky, weights, ratios)
+
+    g2 = gate * gate
+    gxx = torch.rand_like(gate) * g2
+    gxy = torch.rand_like(gate) * g2
+    gyy = torch.rand_like(gate) * g2
+    kgx = gxx[:, None] * kx + gxy[:, None] * ky
+    kgy = gxy[:, None] * kx + gyy[:, None] * ky
+
+    def run_library():
+        torch.bmm(kx, kgx.transpose(1, 2)) + torch.bmm(ky, kgy.transpose(1, 2))
+
+    saved = pr.photo_reduce.launches
+    for fn in (run_plain, run_kernel, run_library):
+        for _ in range(3):
+            fn()
+    torch.cuda.synchronize()
+    reps = 50
+    t_plain_a = cuda_ms(run_plain, reps)
+    t_kernel_a = cuda_ms(run_kernel, reps)
+    t_kernel_b = cuda_ms(run_kernel, reps)
+    t_plain_b = cuda_ms(run_plain, reps)
+    t_library = cuda_ms(run_library, reps)
+    pr.photo_reduce.launches = saved
+    kernel_ms = 0.5 * (t_kernel_a + t_kernel_b)
+    plain_ms = 0.5 * (t_plain_a + t_plain_b)
+    say(f"time [{card}] photo_reduce kernel {kernel_ms:.4f} ms (runs {t_kernel_a:.4f}, "
+        f"{t_kernel_b:.4f}), plain {plain_ms:.4f} ms (runs {t_plain_a:.4f}, "
+        f"{t_plain_b:.4f}), library bmm of the final contraction {t_library:.4f} ms, "
+        f"bound {bound_ms:.4f} ms by {bound_by} ({(in_bytes + out_bytes) / 1e6:.1f} MB, "
+        f"{flops / 1e9:.3f} GFLOP) at E={e} L={lv} C={c3 // 3} N={n} dim={dim}")
+
+    step_times, event_times = [], []
+    for rep in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        ba.run_ba(variables, prepared, pyr, cfg, update_mask, max_iters=10)
+        stop.record()
+        torch.cuda.synchronize()
+        if rep > 0:  # the first is warm-up
+            step_times.append((time.perf_counter() - t0) * 1e3)
+            event_times.append(start.elapsed_time(stop))
+    say(f"time [{card}] run_ba 10-iteration step at the bench point: "
+        f"{np.mean(step_times):.3f} ms host clock, {np.mean(event_times):.3f} ms "
+        f"CUDA events, mean of {len(step_times)} (host runs "
+        f"{', '.join(f'{t:.3f}' for t in step_times)})")
+
+    # ---- 6. result ----
+    kernels = [{
+        "name": "photo_reduce",
+        "route": "cuda",
+        "source": "sage_slam_tpu_torch/ops/csrc/photo_reduce.cu",
+        "replaces": "sage_slam_tpu/ops/pallas_kernels.py:118",
+        "launches": launches["photo_reduce"],
+        "max_abs_err": max_err,
+        "max_rel_err": max_rel,
+        "matched": True,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": t_library,
+        "library_call": "torch.bmm of the final contraction kx@kgx^T + ky@kgy^T only",
+    }]
+    say(json.dumps({"kernels": kernels}))
+    say(card_line())
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
+    }}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,22 @@
+"""sage_slam_tpu_torch — the PyTorch/CUDA port of sage_slam_tpu.
+
+The JAX package ``sage_slam_tpu`` stays the reference. This package mirrors
+its module paths so that each function's counterpart is easy to find, and
+runs on an NVIDIA GPU (Hopper, ``sm_90a``). The one hand-written kernel of
+the window-BA path is the photometric J^T W J reduce
+(``ops/photo_reduce.py`` + ``ops/csrc/photo_reduce.cu``).
+
+Package layout (the ported slice):
+  config.py   own copy of the configuration dataclasses
+  device.py   device resolution and float32 precision settings
+  geometry/   SE3, pinhole cameras, bilinear gather primitives
+  ops/        pyramid, photometric / geometric / prior factors, the reduce
+  solver/     PSD correction, Hessian assembly, LM loop, window BA
+  convert.py  numpy fields of the JAX package's structures -> torch
+  synthetic.py  the synthetic BA problems of bench.py / __graft_entry__.py
+  _build.py   nvcc build of the CUDA sources at first use
+
+It imports neither ``jax`` nor ``sage_slam_tpu``.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,183 @@
+"""The photometric J^T W J reduce: a CUDA kernel and its plain version.
+
+Replaces the TPU kernel ``photo_reduce_pallas`` (sage_slam_tpu/ops/
+pallas_kernels.py:118, ``pl.pallas_call`` at :152) and computes the same
+function as ``photo_reduce_xla`` (sage_slam_tpu/ops/photometric.py:617).
+
+For each edge e and point n, summed over L levels with weight w_l and focal
+ratios (rx_l, ry_l), the per-point gradient Gram gxx, gxy, gyy, the
+gradient-residual products hx, hy (d = f0 - f1) and sum d^2, all scaled by
+gate^2; then, over points, the un-normalised
+
+  ata = Kx^T (gxx Kx + gxy Ky) + Ky^T (gxy Kx + gyy Ky)   [E, dim, dim]
+  atb = Kx^T hx + Ky^T hy                                 [E, dim]
+  err = sum gate^2 sum_l w_l sum_c d^2                    [E]
+  n_inl = sum gate^2                                      [E]
+
+The kernel (csrc/photo_reduce.cu) is bound by memory: at the window-BA
+bench point (E=24, L=4, C=16, N=3072, dim=29) it must read about 93 MB
+(fgs 56.6 MB, f0 18.9 MB, kx+ky 17.1 MB, gate 0.3 MB) and does well under
+a GFLOP of FP32 work. Its design: stage A runs one thread per point over a
+grid (point tiles, edges), forms the Gram sums in registers with loads
+coalesced along N, stages the tile's K-rows and Gram terms in shared
+memory, and reduces the tile into a partial upper triangle of ata plus
+atb, err and n_inl; stage B sums the partials over tiles in a fixed order
+(deterministic) and writes (i, j) and (j, i) from one sum, so ata is
+bit-symmetric. FP32 FMA only: no TF32, no tensor cores. The TPU kernel's
+revisited output block and its padded-rows-ride-the-MXU trick are TPU
+devices and have no counterpart here.
+
+``photo_reduce`` launches the kernel for CUDA tensors (and raises if the
+build or the launch fails; it never falls back) and runs
+``photo_reduce_ref`` for CPU tensors. ``photo_reduce.launches`` counts
+kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+MAX_LEVELS = 8  # the kernel's per-level parameter arrays
+MAX_DIM = 32  # the kernel's shared-memory K-row tile (dim = 13 + CS)
+
+
+def photo_reduce_ref(fgs, f0_cm, gate, kx, ky, weights, ratios):
+    """Plain PyTorch reduce, a line-for-line port of photo_reduce_xla
+    batched over E -> un-normalised (ata [E, dim, dim], atb [E, dim],
+    err [E], n_inl [E])."""
+    c = f0_cm.shape[-2]
+    gate2 = gate * gate
+    zero = torch.zeros_like(gate)
+    gxx = gxy = gyy = hx = hy = zero
+    err_total = torch.zeros_like(gate[:, 0])
+    for lvl in range(fgs.shape[1]):
+        fg = fgs[:, lvl]  # [E, 3C, N]
+        f1 = fg[:, :c]
+        gx = fg[:, c : 2 * c]
+        gy = fg[:, 2 * c :]
+        d = f0_cm[:, lvl] - f1
+        wl = float(weights[lvl])
+        rx, ry = ratios[lvl]
+        gxx = gxx + (wl * rx * rx) * torch.sum(gx * gx, dim=1)
+        gxy = gxy + (wl * rx * ry) * torch.sum(gx * gy, dim=1)
+        gyy = gyy + (wl * ry * ry) * torch.sum(gy * gy, dim=1)
+        hx = hx + (wl * rx) * torch.sum(gx * d, dim=1)
+        hy = hy + (wl * ry) * torch.sum(gy * d, dim=1)
+        err_total = err_total + wl * torch.sum(gate2 * torch.sum(d * d, dim=1), dim=-1)
+    n_inl = torch.sum(gate2, dim=-1)
+    gxx, gxy, gyy = gate2 * gxx, gate2 * gxy, gate2 * gyy
+    hx, hy = gate2 * hx, gate2 * hy
+    kgx = gxx[:, None] * kx + gxy[:, None] * ky  # [E, dim, N]
+    kgy = gxy[:, None] * kx + gyy[:, None] * ky
+    ata = kx @ kgx.transpose(-1, -2) + ky @ kgy.transpose(-1, -2)
+    atb = (kx @ hx[..., None])[..., 0] + (ky @ hy[..., None])[..., 0]
+    return ata, atb, err_total, n_inl
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """The built kernel library with its C signatures declared."""
+    from .._build import load_library
+
+    lib = load_library("photo_reduce")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.photo_reduce_launch.argtypes = [ptr] * 10 + [i32] * 5 + [
+        ctypes.POINTER(ctypes.c_float), ptr,
+    ]
+    lib.photo_reduce_launch.restype = i32
+    lib.photo_reduce_num_tiles.argtypes = [i32]
+    lib.photo_reduce_num_tiles.restype = i32
+    lib.photo_reduce_error_string.argtypes = [i32]
+    lib.photo_reduce_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_inputs(fgs, f0_cm, gate, kx, ky, weights, ratios):
+    tensors = {"fgs": fgs, "f0_cm": f0_cm, "gate": gate, "kx": kx, "ky": ky}
+    for name, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"photo_reduce: {name} is {t.dtype}, expected float32")
+        if t.device != fgs.device:
+            raise ValueError(f"photo_reduce: {name} on {t.device}, fgs on {fgs.device}")
+    if fgs.dim() != 4 or f0_cm.dim() != 4 or gate.dim() != 2 or kx.dim() != 3:
+        raise ValueError("photo_reduce: expected fgs/f0_cm 4-D, gate 2-D, kx/ky 3-D")
+    e, lv, c3, n = fgs.shape
+    c = c3 // 3
+    dim = kx.shape[1]
+    if (
+        c3 != 3 * c
+        or f0_cm.shape != (e, lv, c, n)
+        or gate.shape != (e, n)
+        or kx.shape != (e, dim, n)
+        or ky.shape != kx.shape
+    ):
+        raise ValueError(
+            "photo_reduce: shapes fgs %s f0_cm %s gate %s kx %s ky %s do not "
+            "match [E,L,3C,N] [E,L,C,N] [E,N] [E,dim,N] [E,dim,N]"
+            % (tuple(fgs.shape), tuple(f0_cm.shape), tuple(gate.shape),
+               tuple(kx.shape), tuple(ky.shape))
+        )
+    if len(ratios) != lv or len(weights) < lv:
+        raise ValueError(
+            f"photo_reduce: {len(ratios)} ratios and {len(weights)} weights "
+            f"for {lv} levels (ratios: one per level; weights: at least one)"
+        )
+    return e, lv, c, n, dim
+
+
+def photo_reduce(fgs, f0_cm, gate, kx, ky, weights, ratios):
+    """Fused photometric reduce over all edges -> un-normalised
+    (ata [E, dim, dim], atb [E, dim], err [E], n_inl [E]).
+
+    fgs [E, L, 3C, N] target samples (rows f1 | gx | gy), f0_cm
+    [E, L, C, N] source features, gate [E, N], kx, ky [E, dim, N] K-rows,
+    all float32; weights: per-level weights (a config tuple may be longer
+    than L); ratios: one (rx, ry) per level. CUDA tensors go to the
+    kernel, CPU tensors to photo_reduce_ref."""
+    e, lv, c, n, dim = _check_inputs(fgs, f0_cm, gate, kx, ky, weights, ratios)
+    if fgs.device.type == "cpu":
+        return photo_reduce_ref(fgs, f0_cm, gate, kx, ky, weights, ratios)
+    if fgs.device.type != "cuda":
+        raise ValueError(f"photo_reduce: unsupported device {fgs.device}")
+    if lv > MAX_LEVELS or dim > MAX_DIM:
+        raise ValueError(
+            f"photo_reduce kernel: L={lv} (max {MAX_LEVELS}), dim={dim} (max {MAX_DIM})"
+        )
+    for name, t in (("fgs", fgs), ("f0_cm", f0_cm), ("gate", gate), ("kx", kx), ("ky", ky)):
+        if not t.is_contiguous():
+            raise ValueError(f"photo_reduce kernel: {name} is not contiguous")
+    lib = _library()
+    dev = fgs.device
+    n_tiles = lib.photo_reduce_num_tiles(n)
+    n_out = dim * (dim + 1) // 2 + dim + 2
+    partial = torch.empty((e, n_tiles, n_out), dtype=torch.float32, device=dev)
+    ata = torch.empty((e, dim, dim), dtype=torch.float32, device=dev)
+    atb = torch.empty((e, dim), dtype=torch.float32, device=dev)
+    err = torch.empty((e,), dtype=torch.float32, device=dev)
+    n_inl = torch.empty((e,), dtype=torch.float32, device=dev)
+    host = (ctypes.c_float * (3 * lv))(
+        *[float(weights[i]) for i in range(lv)],
+        *[float(r[0]) for r in ratios],
+        *[float(r[1]) for r in ratios],
+    )
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = lib.photo_reduce_launch(
+            fgs.data_ptr(), f0_cm.data_ptr(), gate.data_ptr(),
+            kx.data_ptr(), ky.data_ptr(), partial.data_ptr(),
+            ata.data_ptr(), atb.data_ptr(), err.data_ptr(), n_inl.data_ptr(),
+            e, lv, c, n, dim, host, stream,
+        )
+    if status != 0:
+        raise RuntimeError(
+            f"photo_reduce kernel launch failed: CUDA error {status} "
+            f"({lib.photo_reduce_error_string(status).decode()})"
+        )
+    photo_reduce.launches += 1
+    return ata, atb, err, n_inl
+
+
+photo_reduce.launches = 0

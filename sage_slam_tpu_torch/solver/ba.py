@@ -1,0 +1,394 @@
+"""Sliding-window / global bundle adjustment over the keyframe window.
+
+Port of sage_slam_tpu/solver/ba.py. Photometric and geometric edges live in
+padded edge tables, are linearized batched over the edge axis, PSD-
+corrected and scatter-added into one dense block Hessian over the window;
+per-keyframe priors are added; the damped GN loop (solver.graph.lm_loop)
+runs the optimization.
+
+The photometric reduce of every linearization is ops/photo_reduce (the
+CUDA kernel when the problem lies on the card). Reprojection edges (off by
+default, MapperConfig.use_reprojection) are not ported yet: linearize and
+total_error raise NotImplementedError on a problem that carries any.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..config import PHOTO_REDUCE_NAMES
+from ..device import set_f32_precision
+from ..geometry.camera import CameraPyramid
+from ..geometry.se3 import SE3
+from ..ops import geometric, photometric, priors
+from ..ops.photo_reduce import photo_reduce
+from . import graph
+from .graph import Variables
+
+
+class WindowData(NamedTuple):
+    """Per-keyframe padded arrays (leading axis K = window size)."""
+
+    loc1d: torch.Tensor  # [K, N] sampled photometric pixel ids
+    homo: torch.Tensor  # [K, N, 3]
+    bias_flat: torch.Tensor  # [K, HW]
+    jac_flat: torch.Tensor  # [K, HW, CS]
+    feat_pyr: torch.Tensor  # [C, K, T]
+    grad_pyr: torch.Tensor  # [2, C, K, T]
+    src_feats: torch.Tensor  # [K, L, N, C] cached per-level source samples
+    avg_sq_bias: torch.Tensor  # [K] masked mean of squared depth bias
+    mask_flat: torch.Tensor  # [HW] shared video mask (full res)
+    # gather tables (photometric.build_photo_tables) and the source decode
+    # at the sampled pixels; filled by prepare_problem
+    packed_fg: torch.Tensor | None = None  # [4*(3C+1), K*Tq]
+    packed_feat: torch.Tensor | None = None  # [4*(C+1), K*Tq]
+    bias_at: torch.Tensor | None = None  # [K, N]
+    jac_at: torch.Tensor | None = None  # [K, N, CS]
+    dense_fg: tuple = ()  # per dense level: [K, 3C, M_l]
+    dense_feat: tuple = ()  # per dense level: [K, C, M_l]
+
+
+class EdgeTable(NamedTuple):
+    """Directed factor edges kf[i0] -> frame[i1], padded with valid=0."""
+
+    i0: torch.Tensor  # [E] int64
+    i1: torch.Tensor  # [E] int64
+    valid: torch.Tensor  # [E] float 0/1
+
+
+class ReprojEdgeTable(NamedTuple):
+    """Reprojection edges with their match sets (E edges x M matches).
+    Carried as data; the factor itself waits for the mapper slice."""
+
+    i0: torch.Tensor
+    i1: torch.Tensor
+    valid: torch.Tensor
+    loc1d_0: torch.Tensor
+    homo_0: torch.Tensor
+    matched_2d_1: torch.Tensor
+    match_valid: torch.Tensor
+    weight: torch.Tensor
+
+
+class PriorTable(NamedTuple):
+    """Per-keyframe priors."""
+
+    code_valid: torch.Tensor  # [K] code prior on every active keyframe
+    scale_valid: torch.Tensor  # [K] scale prior (init keyframe / loop anchors)
+    scale_init: torch.Tensor  # [K] target scale
+    pose_valid: torch.Tensor  # [K] pose prior (gauge anchor)
+    pose_target: SE3  # [K] target poses
+
+
+class BAProblem(NamedTuple):
+    window: WindowData
+    photo_edges: EdgeTable
+    geo_edges: EdgeTable
+    priors: PriorTable
+    reproj_edges: ReprojEdgeTable | None = None
+
+
+def prepare_problem(problem: BAProblem, cam_pyr: CameraPyramid) -> BAProblem:
+    """Precompute the window's gather tables and the source-pixel decode
+    tables (idempotent)."""
+    w = problem.window
+    if w.packed_fg is not None:
+        return problem
+    c = w.feat_pyr.shape[0]
+    packed_fg, packed_feat, dense_fg, dense_feat = photometric.build_photo_tables(
+        w.feat_pyr.reshape(c, -1), w.grad_pyr.reshape(2, c, -1), w.mask_flat, cam_pyr
+    )
+    loc = w.loc1d.long()
+    kf = torch.arange(loc.shape[0], device=loc.device)[:, None]
+    return problem._replace(
+        window=w._replace(
+            packed_fg=packed_fg,
+            packed_feat=packed_feat,
+            bias_at=w.bias_flat[kf, loc],  # [K, N]
+            jac_at=w.jac_flat[kf, loc],  # [K, N, CS]
+            dense_fg=dense_fg,
+            dense_feat=dense_feat,
+        )
+    )
+
+
+def _photo_inputs(window: WindowData, e: EdgeTable):
+    """Per-edge handles + SHARED flat tables (no per-edge table copies)."""
+    hw = window.bias_flat.shape[-1]
+    t = window.feat_pyr.shape[-1]
+    c = window.feat_pyr.shape[0]
+    cs = window.jac_flat.shape[-1]
+    kf0 = photometric.PhotoKf0(
+        loc1d=window.loc1d[e.i0],
+        homo0=window.homo[e.i0],
+        src_feats=window.src_feats[e.i0],
+        base_hw=e.i0 * hw,
+        base_pyr=e.i0 * t,
+        bias_at=None if window.bias_at is None else window.bias_at[e.i0],
+        jac_at=None if window.jac_at is None else window.jac_at[e.i0],
+    )
+    fr1 = photometric.PhotoFr1(base_pyr=e.i1 * t)
+    shared = photometric.PhotoShared(
+        bias_flat=window.bias_flat.reshape(-1),
+        jac_flat=window.jac_flat.reshape(-1, cs),
+        feat_pyr=window.feat_pyr.reshape(c, -1),
+        grad_pyr=window.grad_pyr.reshape(2, c, -1),
+        mask_flat=window.mask_flat,
+        packed_fg=window.packed_fg,
+        packed_feat=window.packed_feat,
+        dense_fg=window.dense_fg,
+        dense_feat=window.dense_feat,
+    )
+    return kf0, fr1, shared
+
+
+def _geo_inputs(window: WindowData, e: EdgeTable, variables: Variables, cam, which):
+    hw = window.bias_flat.shape[-1]
+    cs = window.jac_flat.shape[-1]
+    kf0 = geometric.GeoKf0(
+        loc1d=window.loc1d[e.i0],
+        homo0=window.homo[e.i0],
+        base_hw=e.i0 * hw,
+        bias_at=None if window.bias_at is None else window.bias_at[e.i0],
+        jac_at=None if window.jac_at is None else window.jac_at[e.i0],
+    )
+    kf1 = geometric.GeoKf1(base_hw=e.i1 * hw)
+    # frame-1 decode + quad pack once per keyframe per linearization;
+    # edges sharing a target keyframe reuse the table
+    packed_full, packed_dpt = geometric.build_frame1_tables(
+        window.bias_flat, window.jac_flat, variables.code, variables.scale,
+        cam, window.mask_flat, which=which,
+    )
+    shared = geometric.GeoShared(
+        bias_flat=window.bias_flat.reshape(-1),
+        jac_flat=window.jac_flat.reshape(-1, cs),
+        mask_flat=window.mask_flat,
+        packed_full=packed_full,
+        packed_dpt=packed_dpt,
+    )
+    return kf0, kf1, shared
+
+
+def _edge_pose(variables: Variables, idx: torch.Tensor) -> SE3:
+    return SE3(variables.pose.rot[idx], variables.pose.trans[idx])
+
+
+def _check(variables: Variables, problem: BAProblem, cfg) -> None:
+    re = problem.reproj_edges
+    if re is not None and re.i0.shape[0] > 0:
+        raise NotImplementedError(
+            "reprojection edges are not ported yet (use_reprojection=False)"
+        )
+    name = getattr(cfg, "photo_reduce", "xla")
+    if name not in PHOTO_REDUCE_NAMES:
+        raise ValueError(f"photo_reduce={name!r}; expected one of {PHOTO_REDUCE_NAMES}")
+    if variables.scale.is_cuda:
+        set_f32_precision()
+
+
+def linearize(
+    variables: Variables,
+    problem: BAProblem,
+    cam_pyr: CameraPyramid,
+    cfg,
+    psd: bool = True,
+):
+    """Full graph linearization -> (H [D,D], b [D], error scalar)."""
+    _check(variables, problem, cfg)
+    k = variables.num_kf
+    cs = variables.code_size
+    bd = variables.block_dim
+    dtype = variables.scale.dtype
+    dev = variables.scale.device
+    h, b = graph.empty_system(k, bd, dtype, dev)
+    total_err = torch.zeros((), dtype=dtype, device=dev)
+    soft = getattr(cfg, "soft_inlier_gate", False)
+
+    sel_pose = torch.arange(6, device=dev)
+    sel_code = torch.arange(6, 6 + cs, device=dev)
+    sel_scale = torch.arange(6 + cs, 7 + cs, device=dev)
+
+    # ---- photometric edges: vars (p0, p1, c0, s0), dim 13+CS ----
+    pe = problem.photo_edges
+    if pe.i0.shape[0] > 0:
+        kf0, fr1, shared = _photo_inputs(problem.window, pe)
+        fgs, f0cm, gate, kx, ky = photometric.photo_prep(
+            _edge_pose(variables, pe.i0), _edge_pose(variables, pe.i1),
+            variables.code[pe.i0], variables.scale[pe.i0], kf0, fr1, shared,
+            cam_pyr, cfg.dpt_eps, soft=soft,
+        )
+        ata, atb, err_t, n_inl = photo_reduce(
+            fgs, f0cm, gate, kx, ky,
+            tuple(cfg.photo_factor_weights), photometric.level_ratios(cam_pyr),
+        )
+        ata, atb, err, _ = photometric.photo_normalize(
+            ata, atb, err_t, n_inl, cfg.photo_factor_weights
+        )
+        if psd:
+            ata = graph.psd_correct(ata)
+        gidx = torch.cat(
+            [
+                graph.slot_indices(pe.i0, bd, sel_pose),
+                graph.slot_indices(pe.i1, bd, sel_pose),
+                graph.slot_indices(pe.i0, bd, sel_code),
+                graph.slot_indices(pe.i0, bd, sel_scale),
+            ],
+            dim=-1,
+        )  # [E, 13+CS]
+        h, b = graph.scatter_hessian(h, b, gidx, ata, atb, pe.valid)
+        total_err = total_err + torch.sum(err * pe.valid)
+
+    # ---- geometric edges: vars (p0, p1, c0, c1, s0, s1), dim 14+2CS ----
+    ge = problem.geo_edges
+    if ge.i0.shape[0] > 0:
+        kf0, kf1, gshared = _geo_inputs(
+            problem.window, ge, variables, cam_pyr[0], which="full"
+        )
+        loss_param = cfg.geo_loss_param_factor * problem.window.avg_sq_bias[ge.i0]
+        ata, atb, err, _ = geometric.geometric_jac_error(
+            _edge_pose(variables, ge.i0), _edge_pose(variables, ge.i1),
+            variables.code[ge.i0], variables.code[ge.i1],
+            variables.scale[ge.i0], variables.scale[ge.i1],
+            kf0, kf1, gshared, cam_pyr[0], cfg.geo_factor_weight,
+            loss_param, cfg.dpt_eps,
+        )
+        if psd:
+            ata = graph.psd_correct(ata)
+        gidx = torch.cat(
+            [
+                graph.slot_indices(ge.i0, bd, sel_pose),
+                graph.slot_indices(ge.i1, bd, sel_pose),
+                graph.slot_indices(ge.i0, bd, sel_code),
+                graph.slot_indices(ge.i1, bd, sel_code),
+                graph.slot_indices(ge.i0, bd, sel_scale),
+                graph.slot_indices(ge.i1, bd, sel_scale),
+            ],
+            dim=-1,
+        )  # [E, 14+2CS]
+        h, b = graph.scatter_hessian(h, b, gidx, ata, atb, ge.valid)
+        total_err = total_err + torch.sum(err * ge.valid)
+
+    # ---- priors ----
+    pr = problem.priors
+    kf_range = torch.arange(k, device=dev)
+    ata_c, atb_c, err_c = priors.code_prior(
+        variables.code, torch.zeros_like(variables.code), cfg.code_factor_weight
+    )
+    h, b = graph.scatter_hessian(
+        h, b, graph.slot_indices(kf_range, bd, sel_code), ata_c, atb_c, pr.code_valid
+    )
+    total_err = total_err + torch.sum(err_c * pr.code_valid)
+
+    ata_s, atb_s, err_s = priors.scale_prior(
+        variables.scale, pr.scale_init, cfg.init_scale_prior_weight
+    )
+    h, b = graph.scatter_hessian(
+        h, b, graph.slot_indices(kf_range, bd, sel_scale), ata_s, atb_s, pr.scale_valid
+    )
+    total_err = total_err + torch.sum(err_s * pr.scale_valid)
+
+    ata_p, atb_p, err_p = priors.pose_prior(
+        variables.pose, pr.pose_target, cfg.init_pose_prior_weight
+    )
+    h, b = graph.scatter_hessian(
+        h, b, graph.slot_indices(kf_range, bd, sel_pose), ata_p, atb_p, pr.pose_valid
+    )
+    total_err = total_err + torch.sum(err_p * pr.pose_valid)
+    return h, b, total_err
+
+
+def total_error(variables: Variables, problem: BAProblem, cam_pyr, cfg):
+    """Error-only evaluation for the LM accept/reject."""
+    _check(variables, problem, cfg)
+    total = torch.zeros((), dtype=variables.scale.dtype, device=variables.scale.device)
+
+    pe = problem.photo_edges
+    if pe.i0.shape[0] > 0:
+        kf0, fr1, shared = _photo_inputs(problem.window, pe)
+        err, _ = photometric.photometric_error(
+            _edge_pose(variables, pe.i0), _edge_pose(variables, pe.i1),
+            variables.code[pe.i0], variables.scale[pe.i0], kf0, fr1, shared,
+            cam_pyr, cfg.photo_factor_weights, cfg.dpt_eps,
+            soft=getattr(cfg, "soft_inlier_gate", False),
+        )
+        total = total + torch.sum(err * pe.valid)
+
+    ge = problem.geo_edges
+    if ge.i0.shape[0] > 0:
+        kf0, kf1, gshared = _geo_inputs(
+            problem.window, ge, variables, cam_pyr[0], which="dpt"
+        )
+        loss_param = cfg.geo_loss_param_factor * problem.window.avg_sq_bias[ge.i0]
+        err, _ = geometric.geometric_error(
+            _edge_pose(variables, ge.i0), _edge_pose(variables, ge.i1),
+            variables.code[ge.i0], variables.code[ge.i1],
+            variables.scale[ge.i0], variables.scale[ge.i1],
+            kf0, kf1, gshared, cam_pyr[0], cfg.geo_factor_weight,
+            loss_param, cfg.dpt_eps,
+        )
+        total = total + torch.sum(err * ge.valid)
+
+    pr = problem.priors
+    _, _, err_c = priors.code_prior(
+        variables.code, torch.zeros_like(variables.code), cfg.code_factor_weight
+    )
+    total = total + torch.sum(err_c * pr.code_valid)
+    _, _, err_s = priors.scale_prior(
+        variables.scale, pr.scale_init, cfg.init_scale_prior_weight
+    )
+    total = total + torch.sum(err_s * pr.scale_valid)
+    _, _, err_p = priors.pose_prior(
+        variables.pose, pr.pose_target, cfg.init_pose_prior_weight
+    )
+    return total + torch.sum(err_p * pr.pose_valid)
+
+
+def run_ba(
+    variables: Variables,
+    problem: BAProblem,
+    cam_pyr: CameraPyramid,
+    cfg,
+    update_mask: torch.Tensor,
+    max_iters: int | None = None,
+    use_conv: bool = False,
+):
+    """Window BA: damped GN until convergence or budget ->
+    (variables, error, iterations, converged). Runs where the tensors lie.
+    With ``use_conv=True`` the loop stops once an accepted step's gradient
+    or parameter increment drops below cfg.relin_grad_thresh /
+    cfg.relin_param_inc_thresh."""
+    _check(variables, problem, cfg)
+    iters = max_iters if max_iters is not None else cfg.max_gn_iters
+    problem = prepare_problem(problem, cam_pyr)
+    conv_fn = None
+    if use_conv:
+
+        def conv_fn(delta, grad):
+            return torch.logical_or(
+                torch.amax(torch.abs(grad)) < cfg.relin_grad_thresh,
+                torch.amax(torch.abs(delta)) < cfg.relin_param_inc_thresh,
+            )
+
+    solver = getattr(cfg, "solver", "dense")
+    if solver == "auto":
+        solver = (
+            "schur"
+            if variables.num_kf >= getattr(cfg, "schur_min_keyframes", 48)
+            else "dense"
+        )
+    return graph.lm_loop(
+        variables,
+        lambda v: linearize(v, problem, cam_pyr, cfg),
+        lambda v: total_error(v, problem, cam_pyr, cfg),
+        update_mask,
+        iters,
+        init_damp=cfg.gn_init_damp,
+        min_damp=cfg.gn_min_damp,
+        max_damp=cfg.gn_max_damp,
+        damp_dec=cfg.gn_damp_dec_factor,
+        damp_inc=cfg.gn_damp_inc_factor,
+        conv_fn=conv_fn,
+        solver=solver,
+    )

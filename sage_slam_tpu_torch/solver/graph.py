@@ -1,0 +1,195 @@
+"""Factor-graph Gauss-Newton/LM over the keyframe window (port of
+sage_slam_tpu/solver/graph.py).
+
+Per-keyframe variable block (dim 7 + CS):
+  [0:6] pose tangent (left-multiplicative, [trans, rot]),
+  [6:6+CS] depth code, [6+CS] scale.
+
+Edge blocks are scatter-added into one dense block Hessian over the window
+and solved with a damped Cholesky.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..geometry.se3 import SE3, retract
+from .psd import psd_bump
+
+
+class Variables(NamedTuple):
+    """SoA keyframe state: pose [K], code [K, CS], scale [K]."""
+
+    pose: SE3  # rot [K,3,3], trans [K,3]
+    code: torch.Tensor  # [K, CS]
+    scale: torch.Tensor  # [K]
+
+    @property
+    def num_kf(self) -> int:
+        return self.scale.shape[0]
+
+    @property
+    def code_size(self) -> int:
+        return self.code.shape[-1]
+
+    @property
+    def block_dim(self) -> int:
+        return 7 + self.code_size
+
+    def apply_delta(self, delta: torch.Tensor, update_mask: torch.Tensor) -> "Variables":
+        """delta [K, block_dim]; update_mask [K] gates frozen keyframes, or
+        [K, block_dim] gates individual components."""
+        cs = self.code_size
+        m = expand_mask(update_mask, self.block_dim).to(delta.dtype)
+        new_pose = retract(self.pose, delta[:, :6] * m[:, :6])
+        new_code = self.code + delta[:, 6 : 6 + cs] * m[:, 6 : 6 + cs]
+        new_scale = self.scale + delta[:, 6 + cs] * m[:, 6 + cs]
+        return Variables(new_pose, new_code, new_scale)
+
+
+def expand_mask(update_mask: torch.Tensor, block_dim: int) -> torch.Tensor:
+    """Normalize a per-keyframe [K] or per-component [K, block_dim]
+    update mask to [K, block_dim]."""
+    if update_mask.dim() == 1:
+        return update_mask[:, None].expand(update_mask.shape[0], block_dim)
+    return update_mask
+
+
+def slot_indices(kf_idx: torch.Tensor, block_dim: int, sel: torch.Tensor) -> torch.Tensor:
+    """Global tangent indices [..., S] for the slots ``sel`` [S] of the
+    keyframes ``kf_idx`` [...]."""
+    return kf_idx[..., None] * block_dim + sel
+
+
+def scatter_hessian(
+    h: torch.Tensor,  # [D, D]
+    b: torch.Tensor,  # [D]
+    gidx: torch.Tensor,  # [E, S] global indices per edge
+    ata: torch.Tensor,  # [E, S, S]
+    atb: torch.Tensor,  # [E, S]
+    valid: torch.Tensor,  # [E] 0/1
+):
+    """Accumulate per-edge Hessian blocks: H += P^T (A P), b += P^T atb,
+    with the one-hot selection P [E*S, D] zeroed for invalid edges.
+
+    Kept as float32 matmuls, as in the JAX package: deterministic on the
+    card (index_put_ with accumulate=True would sum with atomics in a
+    run-dependent order). Each output entry sums the same products as a
+    scatter-add; the order of that sum differs from the JAX package's, so
+    comparisons use float32-roundoff tolerances."""
+    d = h.shape[-1]
+    e, s = gidx.shape
+    cols = torch.arange(d, dtype=gidx.dtype, device=gidx.device)
+    p = (gidx[..., None] == cols).to(h.dtype) * valid.to(h.dtype)[:, None, None]
+    pf = p.reshape(e * s, d)
+    bmat = ata @ p  # [E, S, D]
+    h = h + pf.T @ bmat.reshape(e * s, d)
+    b = b + pf.T @ atb.reshape(e * s)
+    return h, b
+
+
+def empty_system(num_kf: int, block_dim: int, dtype=torch.float32, device=None):
+    dim = num_kf * block_dim
+    return (
+        torch.zeros((dim, dim), dtype=dtype, device=device),
+        torch.zeros((dim,), dtype=dtype, device=device),
+    )
+
+
+def psd_correct(ata: torch.Tensor) -> torch.Tensor:
+    """Per-edge PSD correction before assembly: symmetrize + Gerschgorin-
+    scaled diagonal bump (solver.psd.psd_bump)."""
+    return psd_bump(ata)
+
+
+def _damped_solve(h, b, damping: float, min_damp: float, free):
+    """Solve (H + damping diag(H) + min_damp I) delta = b on the free
+    components (frozen rows/cols become identity with zero rhs).
+
+    JAX's cho_factor turns a failed factorization into NaNs, which the
+    isfinite mask then zeroes. torch.linalg.cholesky raises instead and
+    cholesky_ex returns a partial factor that is not NaN, so the factor's
+    ``info`` decides: delta is 0 whenever info != 0. The upper factor is
+    used, as cho_factor's default reads the upper triangle."""
+    dim = h.shape[-1]
+    eye = torch.eye(dim, dtype=h.dtype, device=h.device)
+    h_damped = h + torch.diag(damping * torch.diagonal(h)) + min_damp * eye
+    h_masked = h_damped * free[:, None] * free[None, :] + torch.diag(1.0 - free)
+    b_masked = b * free
+    u, info = torch.linalg.cholesky_ex(h_masked, upper=True)
+    delta = torch.cholesky_solve(b_masked[:, None], u, upper=True)[:, 0]
+    delta = torch.where(info == 0, delta, torch.zeros_like(delta))
+    delta = torch.where(torch.isfinite(delta), delta, torch.zeros_like(delta))
+    return delta, b_masked
+
+
+def lm_loop(
+    variables: Variables,
+    linearize_fn,  # vars -> (H [D,D], b [D], error scalar)
+    error_fn,  # vars -> error scalar (used ONCE, for the final candidate)
+    update_mask: torch.Tensor,  # [K] per-keyframe or [K, bd] per-component
+    max_iters: int,
+    init_damp: float = 1e-4,
+    min_damp: float = 1e-6,
+    max_damp: float = 1e2,
+    damp_dec: float = 10.0,
+    damp_inc: float = 10.0,
+    min_error_dec: float = 0.0,
+    conv_fn=None,  # (delta [K, bd], grad [K, bd]) -> bool; on accepted step
+    solver: str = "dense",
+):
+    """Deferred-acceptance damped GN (Levenberg-Marquardt) ->
+    (variables, error, iterations, converged).
+
+    One iteration = linearize the CANDIDATE -> accept/reject against the
+    last accepted error -> damped solve from the accepted linearization
+    (a reject re-solves the stored (H, b) under higher damping) -> retract
+    the next candidate. After the loop, one error_fn pass decides the last
+    candidate, which no linearization evaluated.
+
+    The JAX package runs this in one lax.while_loop; here it is a Python
+    loop whose accept decision is read on the host once per iteration.
+    The damping is kept as a float32 scalar, so the stop test
+    ``damping <= max_damp`` sees the same float32 values as in JAX."""
+    if solver != "dense":
+        raise NotImplementedError(f"solver={solver!r}: only 'dense' is ported")
+    k = variables.num_kf
+    bd = variables.block_dim
+    dtype = variables.scale.dtype
+    device = variables.scale.device
+    mask2d = expand_mask(update_mask, bd).to(dtype)
+    free = mask2d.reshape(-1)
+    f32 = np.float32
+    max_damp32 = f32(max_damp)
+
+    accepted = variables
+    error = torch.tensor(float("inf"), dtype=dtype, device=device)
+    h, b = empty_system(k, bd, dtype, device)
+    candidate = variables
+    damping = f32(init_damp)
+    iteration = 0
+    converged = False
+    while iteration < max_iters and damping <= max_damp32 and not converged:
+        h_c, b_c, err_c = linearize_fn(candidate)
+        # first iteration always accepts: the accepted error starts at +inf
+        accept = bool(err_c < error - min_error_dec)
+        if accept:
+            accepted, error, h, b = candidate, err_c, h_c, b_c
+            damping = max(damping / f32(damp_dec), f32(min_damp))
+        else:
+            damping = damping * f32(damp_inc)
+        delta, b_masked = _damped_solve(h, b, float(damping), min_damp, free)
+        candidate = accepted.apply_delta(delta.reshape(k, bd), update_mask)
+        # gate on accept: a post-reject delta is small because the damping
+        # is high, not because the graph converged
+        converged = accept and conv_fn is not None and bool(
+            conv_fn(delta.reshape(k, bd) * mask2d, b_masked.reshape(k, bd))
+        )
+        iteration += 1
+    err_c = error_fn(candidate)
+    if bool(err_c < error - min_error_dec):
+        return candidate, err_c, iteration, converged
+    return accepted, error, iteration, converged

@@ -1,0 +1,129 @@
+"""Synthetic window-BA problems, built in the port from a numpy seed.
+
+``bench_problem`` reproduces the construction of bench.py (the window-BA
+bench point: K=8 keyframes, 64x80 output, CS=FS=16, 4 pyramid levels,
+3072 samples, 24 photometric + 24 geometric ring edges);
+``graft_problem`` reproduces ``__graft_entry__._build_problem`` (K=4,
+32x40, CS=FS=16, 4 levels, 512 samples, consecutive-pair edges). The
+numpy draws are made in the same order as there, so the inputs are the
+same; the pyramid is computed by the port.
+
+Both build on the card unless ``device="cpu"`` is passed.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .device import resolve_device
+from .geometry.camera import CameraPyramid, PinholeCamera
+from .geometry.interp import locations_1d_to_homo
+from .geometry.se3 import SE3, se3_exp
+from .ops.photometric import sample_source_features
+from .ops.pyramid import gaussian_pyramid_with_grad, mask_pyramid
+from .solver.ba import BAProblem, EdgeTable, PriorTable, WindowData
+from .solver.graph import Variables
+
+
+def _window(rng, feat, k, h, w, cs, levels, n, cam, pyr, dev) -> WindowData:
+    """One feature image shared by all K keyframes (draws: jac, loc1d)."""
+    mask = torch.ones((h, w), dtype=torch.float32, device=dev)
+    fpyr, gpyr = gaussian_pyramid_with_grad(
+        torch.from_numpy(feat).to(dev), mask_pyramid(mask, levels), levels
+    )
+    bias = np.full(h * w, 1.2, np.float32)
+    jac = (rng.standard_normal((h * w, cs)) * 0.02).astype(np.float32)
+    loc1d = torch.from_numpy(
+        rng.choice(h * w, size=n, replace=False).astype(np.int64)
+    ).to(dev)
+    homo = locations_1d_to_homo(loc1d, cam)
+    srcf = sample_source_features(fpyr, loc1d, pyr)
+    t = pyr.total_pixels
+    c = fpyr.shape[0]
+    return WindowData(
+        loc1d=loc1d[None].expand(k, n).contiguous(),
+        homo=homo[None].expand(k, n, 3).contiguous(),
+        bias_flat=torch.from_numpy(bias).to(dev)[None].expand(k, h * w).contiguous(),
+        jac_flat=torch.from_numpy(jac).to(dev)[None].expand(k, h * w, cs).contiguous(),
+        feat_pyr=fpyr[:, None].expand(c, k, t).contiguous(),
+        grad_pyr=gpyr[:, :, None].expand(2, c, k, t).contiguous(),
+        src_feats=srcf[None].expand(k, *srcf.shape).contiguous(),
+        avg_sq_bias=torch.full((k,), float(np.mean(bias**2)), device=dev),
+        mask_flat=mask.reshape(-1),
+    )
+
+
+def _priors(k, dev) -> PriorTable:
+    first = torch.zeros(k, device=dev)
+    first[0] = 1.0
+    return PriorTable(
+        code_valid=torch.ones(k, device=dev),
+        scale_valid=first.clone(),
+        scale_init=torch.ones(k, device=dev),
+        pose_valid=first.clone(),
+        pose_target=SE3.identity((k,), device=dev),
+    )
+
+
+def _edges(i0, i1, dev) -> EdgeTable:
+    i0 = torch.as_tensor(np.asarray(i0, np.int64), device=dev)
+    i1 = torch.as_tensor(np.asarray(i1, np.int64), device=dev)
+    return EdgeTable(i0, i1, torch.ones(i0.shape[0], device=dev))
+
+
+def _camera(h, w, levels):
+    cam = PinholeCamera(
+        fx=w * 1.1, fy=w * 1.1, cx=w / 2 - 0.5, cy=h / 2 - 0.5, width=w, height=h
+    )
+    return cam, CameraPyramid.build(cam, levels)
+
+
+def bench_problem(device=None, seed=0, k=8, h=64, w=80, cs=16, fs=16, levels=4,
+                  n=3072, n_photo=24, n_geo=24):
+    """bench.py's problem -> (variables, problem, cam_pyr)."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    cam, pyr = _camera(h, w, levels)
+    feat = rng.standard_normal((fs, h, w)).astype(np.float32) * 0.3
+    window = _window(rng, feat, k, h, w, cs, levels, n, cam, pyr, dev)
+
+    def ring(count):
+        i0 = np.arange(count) % k
+        return _edges(i0, (i0 + 1 + (np.arange(count) // k)) % k, dev)
+
+    problem = BAProblem(window, ring(n_photo), ring(n_geo), _priors(k, dev))
+    taus = (rng.standard_normal((k, 6)) * 0.01).astype(np.float32)
+    variables = Variables(
+        se3_exp(torch.from_numpy(taus).to(dev)),
+        torch.zeros((k, cs), device=dev),
+        torch.ones(k, device=dev),
+    )
+    return variables, problem, pyr
+
+
+def graft_problem(device=None, seed=0, k=4, h=32, w=40, cs=16, fs=16, levels=4, n=512):
+    """__graft_entry__._build_problem's problem -> (variables, problem,
+    cam_pyr)."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    cam, pyr = _camera(h, w, levels)
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    feat = np.stack(
+        [np.sin(0.2 * xx + 0.61 * c) * np.cos(0.15 * yy + 0.37 * c) for c in range(fs)]
+    ).astype(np.float32)
+    window = _window(rng, feat, k, h, w, cs, levels, n, cam, pyr, dev)
+    i0, i1 = [], []
+    for a in range(k - 1):
+        i0 += [a, a + 1]
+        i1 += [a + 1, a]
+    edges = _edges(i0, i1, dev)
+    problem = BAProblem(window, edges, edges, _priors(k, dev))
+    taus = np.zeros((k, 6), np.float32)
+    taus[1:] = rng.standard_normal((k - 1, 6)).astype(np.float32) * 0.01
+    variables = Variables(
+        se3_exp(torch.from_numpy(taus).to(dev)),
+        torch.zeros((k, cs), device=dev),
+        torch.ones(k, device=dev),
+    )
+    return variables, problem, pyr

@@ -1,0 +1,52 @@
+"""The port imports neither JAX nor the JAX package.
+
+Walks the AST of every module of sage_slam_tpu_torch/ and of chip_smoke.py
+and fails on any import whose root module is exactly ``jax``, ``jaxlib``
+or ``sage_slam_tpu`` (roots compare exactly, so ``sage_slam_tpu_torch``
+passes). Also checks that the CUDA build directory is git-ignored."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = {"jax", "jaxlib", "sage_slam_tpu"}
+PORT_FILES = sorted((ROOT / "sage_slam_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _import_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.lineno, node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_module_imports_no_jax(path):
+    bad = [(line, root) for line, root in _import_roots(path) if root in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_guard_compares_roots_exactly(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text(
+        "import sage_slam_tpu_torch.ops\nfrom sage_slam_tpu_torch import convert\n"
+        "import jaxtyping\nfrom sage_slam_tpu.ops import geometric\nimport jax.numpy\n"
+    )
+    roots = [root for _, root in _import_roots(src) if root in FORBIDDEN]
+    assert roots == ["sage_slam_tpu", "jax"]
+
+
+def test_cuda_build_directory_is_ignored():
+    from sage_slam_tpu_torch import _build
+
+    rel = _build.BUILD_DIR.relative_to(ROOT).as_posix()
+    lines = {ln.strip().rstrip("/") for ln in (ROOT / ".gitignore").read_text().splitlines()}
+    assert rel in lines, f"{rel}/ is not listed in .gitignore"
+    assert _build.CSRC_DIR.is_dir() and all(
+        (_build.CSRC_DIR / src).is_file() for src in _build.SOURCES.values()
+    )
