@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (sage_slam_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--old-source PATH]
 
 Phases, each of which exits non-zero on failure:
 
@@ -10,15 +10,22 @@ Phases, each of which exits non-zero on failure:
 2. build: compile every CUDA source of the port with nvcc;
 3. kernels vs plain: each kernel's wrapper on the card against its plain
    PyTorch version on the same inputs, at the shapes the window-BA path
-   gives it, binary and soft gates;
+   gives it and at the edges of the kernel's design (N % 4 != 0, N under
+   one tile, one edge, dim 17), binary and soft gates; two launches on the
+   same inputs must be bit-identical;
 4. main path: the window-BA step (run_ba, 10 LM iterations) at the bench
    point (K=8, 64x80, CS=FS=16, L=4, N=3072, 24+24 ring edges); each
    kernel's launch count is read around that run alone; the result is
    checked for finiteness and descent, one linearize on the card is held
    against one on the CPU, and a small problem's run_ba against its CPU run;
-5. times: kernel, plain and library-call ms at the bench shape beside the
-   kernel's bound, and ms per 10-iteration run_ba step (CUDA events and
-   host clock after warm-up);
+5. times: each kernel's device time at the bench shape (torch.profiler
+   kernel durations over 50 wrapper calls; CUDA events around the same 50
+   calls beside it, which also count the host's enqueue), the plain
+   version's and the library call's, the kernel's bound, and ms per
+   10-iteration run_ba step (CUDA events and host clock after warm-up).
+   With ``--old-source PATH`` (an earlier photo_reduce.cu with the
+   two-stage C interface: tiles, partial sums) that kernel is built too and
+   timed in turns with the current one (old, new, new, old);
 6. a JSON line listing every kernel, then the card line, then the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -27,6 +34,8 @@ Imports neither JAX nor the JAX package.
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
 import os
 import subprocess
@@ -83,6 +92,68 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def device_ms(fn, reps: int, match: str | None = None) -> float:
+    """Device time of one fn() call: the durations of its kernels (those
+    whose name holds ``match``, else all) summed by torch.profiler over reps
+    calls, divided by reps. Fails if the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(
+        e.self_device_time_total for e in prof.key_averages()
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+        and (match is None or match in e.key)
+    )
+    if total_us <= 0:
+        fail(f"torch.profiler recorded no device time for {match or 'the plain version'}")
+    return total_us / 1e3 / reps
+
+
+def old_reduce(path: str, build_dir):
+    """An earlier kernel source with the two-stage C interface (tiles, then
+    partial sums, photo_reduce_num_tiles) built from path, as a function of
+    the current wrapper's arguments."""
+    from sage_slam_tpu_torch import _build
+
+    out = os.path.join(build_dir, "photo_reduce_old.so")
+    os.makedirs(build_dir, exist_ok=True)
+    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", out, path],
+                   check=True, capture_output=True, timeout=600)
+    lib = ctypes.CDLL(out)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.photo_reduce_launch.argtypes = [ptr] * 10 + [i32] * 5 + [
+        ctypes.POINTER(ctypes.c_float), ptr]
+    lib.photo_reduce_num_tiles.argtypes = [i32]
+
+    def run(fgs, f0, gate, kx, ky, weights, ratios):
+        e, lv, c3, n = fgs.shape
+        dim = kx.shape[1]
+        n_out = dim * (dim + 1) // 2 + dim + 2
+        dev = fgs.device
+        partial = torch.empty((e, lib.photo_reduce_num_tiles(n), n_out), device=dev)
+        ata = torch.empty((e, dim, dim), device=dev)
+        atb = torch.empty((e, dim), device=dev)
+        err = torch.empty((e,), device=dev)
+        n_inl = torch.empty((e,), device=dev)
+        host = (ctypes.c_float * (3 * lv))(*[float(w) for w in weights[:lv]],
+                                           *[float(r[0]) for r in ratios],
+                                           *[float(r[1]) for r in ratios])
+        status = lib.photo_reduce_launch(
+            fgs.data_ptr(), f0.data_ptr(), gate.data_ptr(), kx.data_ptr(), ky.data_ptr(),
+            partial.data_ptr(), ata.data_ptr(), atb.data_ptr(), err.data_ptr(),
+            n_inl.data_ptr(), e, lv, c3 // 3, n, dim, host,
+            torch.cuda.current_stream().cuda_stream)
+        if status != 0:
+            fail(f"old photo_reduce kernel launch failed: CUDA error {status}")
+        return ata, atb, err, n_inl
+
+    return run
+
+
 def reduce_inputs(e, lv, c, n, dim, soft, seed, dev):
     rng = np.random.default_rng(seed)
     gate = rng.random((e, n)).astype(np.float32)
@@ -123,6 +194,10 @@ def compare_reduce(out, ref, binary: bool, label: str):
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--old-source", default=None,
+                    help="an earlier photo_reduce.cu to time in turns with the current kernel")
+    args = ap.parse_args()
     # ---- 1. device ----
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this smoke run needs a GPU")
@@ -161,6 +236,10 @@ def main() -> None:
         ((3, 4, 16, 512, 29), "test_pallas shape"),
         ((24, 4, 16, 3072, 29), "bench shape"),
         ((4, 4, 16, 1000, 17), "ragged N=1000, dim=17"),
+        ((4, 4, 16, 1001, 29), "N=1001 (N % 4 != 0: scalar loads)"),
+        ((2, 4, 16, 100, 29), "N=100 (under two tiles)"),
+        ((1, 4, 16, 3072, 29), "E=1"),
+        ((4, 4, 16, 1024, 17), "dim=17"),
     ]
     max_err = max_rel = 0.0
     before = pr.photo_reduce.launches
@@ -177,6 +256,15 @@ def main() -> None:
             say(f"kernel vs plain: photo_reduce {tag} E={e} L={lv} C={c} N={n} dim={dim}: ok")
     if pr.photo_reduce.launches != before + 2 * len(checks):
         fail("photo_reduce launch count did not rise with its launches")
+    for e, lv, c, n, dim in ((24, 4, 16, 3072, 29), (4, 4, 16, 1001, 29)):
+        ratios = tuple((0.5**lvl, 0.5**lvl) for lvl in range(lv))
+        ins = reduce_inputs(e, lv, c, n, dim, True, seed=30, dev=dev)
+        first = [x.clone() for x in pr.photo_reduce(*ins, WEIGHTS, ratios)]
+        second = pr.photo_reduce(*ins, WEIGHTS, ratios)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            fail(f"two photo_reduce launches on the same inputs differ (E={e} N={n})")
+        say(f"kernel: two launches at E={e} N={n} dim={dim} are bit-identical: ok")
 
     # ---- 4. main path ----
     cfg = MapperConfig()
@@ -282,25 +370,51 @@ def main() -> None:
     def run_library():
         torch.bmm(kx, kgx.transpose(1, 2)) + torch.bmm(ky, kgy.transpose(1, 2))
 
+    run_old = None
+    if args.old_source:
+        old = old_reduce(args.old_source, os.path.join(ROOT, "sage_slam_tpu_torch", "_build"))
+        out_old = old(fgs, f0, gate, kx, ky, weights, ratios)
+        compare_reduce(out_old, ref, False, "old kernel, main-path prep inputs")
+
+        def run_old():
+            old(fgs, f0, gate, kx, ky, weights, ratios)
+
     saved = pr.photo_reduce.launches
-    for fn in (run_plain, run_kernel, run_library):
-        for _ in range(3):
+    for fn in (run_plain, run_kernel, run_library, run_old):
+        for _ in range(3 if fn else 0):
             fn()
     torch.cuda.synchronize()
     reps = 50
-    t_plain_a = cuda_ms(run_plain, reps)
-    t_kernel_a = cuda_ms(run_kernel, reps)
-    t_kernel_b = cuda_ms(run_kernel, reps)
-    t_plain_b = cuda_ms(run_plain, reps)
-    t_library = cuda_ms(run_library, reps)
+    # device time from the profiler's kernel durations; CUDA events around
+    # the same calls beside it (they also see the host's enqueue)
+    t_plain = [device_ms(run_plain, reps)]
+    if run_old:
+        t_old = [device_ms(run_old, reps, "photo_reduce")]
+    t_kernel = [device_ms(run_kernel, reps, "photo_reduce") for _ in range(2)]
+    if run_old:
+        t_old.append(device_ms(run_old, reps, "photo_reduce"))
+    t_plain.append(device_ms(run_plain, reps))
+    t_library = device_ms(run_library, reps)
+    ev_kernel = cuda_ms(run_kernel, reps)
+    ev_plain = cuda_ms(run_plain, reps)
+    ev_library = cuda_ms(run_library, reps)
     pr.photo_reduce.launches = saved
-    kernel_ms = 0.5 * (t_kernel_a + t_kernel_b)
-    plain_ms = 0.5 * (t_plain_a + t_plain_b)
-    say(f"time [{card}] photo_reduce kernel {kernel_ms:.4f} ms (runs {t_kernel_a:.4f}, "
-        f"{t_kernel_b:.4f}), plain {plain_ms:.4f} ms (runs {t_plain_a:.4f}, "
-        f"{t_plain_b:.4f}), library bmm of the final contraction {t_library:.4f} ms, "
-        f"bound {bound_ms:.4f} ms by {bound_by} ({(in_bytes + out_bytes) / 1e6:.1f} MB, "
-        f"{flops / 1e9:.3f} GFLOP) at E={e} L={lv} C={c3 // 3} N={n} dim={dim}")
+    kernel_ms = float(np.mean(t_kernel))
+    plain_ms = float(np.mean(t_plain))
+    say(f"time [{card}] photo_reduce kernel device {kernel_ms:.5f} ms (runs "
+        f"{t_kernel[0]:.5f}, {t_kernel[1]:.5f}; CUDA events around 50 wrapper calls "
+        f"{ev_kernel:.5f} ms per call), plain device {plain_ms:.4f} ms (runs "
+        f"{t_plain[0]:.4f}, {t_plain[1]:.4f}; events {ev_plain:.4f}), library bmm of the "
+        f"final contraction device {t_library:.4f} ms (events {ev_library:.4f}), "
+        f"bound {bound_ms:.5f} ms by {bound_by} ({(in_bytes + out_bytes) / 1e6:.1f} MB, "
+        f"{flops / 1e9:.3f} GFLOP) = {bound_ms / kernel_ms:.1%} of bound, "
+        f"at E={e} L={lv} C={c3 // 3} N={n} dim={dim}")
+    if run_old:
+        old_ms = float(np.mean(t_old))
+        say(f"time [{card}] old vs new photo_reduce in turns (old, new, new, old), device: "
+            f"old {t_old[0]:.5f}, new {t_kernel[0]:.5f}, new {t_kernel[1]:.5f}, old "
+            f"{t_old[1]:.5f} ms; old {old_ms:.5f} ms ({bound_ms / old_ms:.1%} of bound), "
+            f"new {kernel_ms:.5f} ms ({bound_ms / kernel_ms:.1%}), speed-up {old_ms / kernel_ms:.3f}x")
 
     step_times, event_times = [], []
     for rep in range(4):
@@ -336,7 +450,10 @@ def main() -> None:
         "bound_by": bound_by,
         "library_ms": t_library,
         "library_call": "torch.bmm of the final contraction kx@kgx^T + ky@kgy^T only",
+        "events_ms": ev_kernel,
     }]
+    if run_old:
+        kernels[0]["earlier_ms"] = old_ms
     say(json.dumps({"kernels": kernels}))
     say(card_line())
     say(json.dumps({"ok": True, "device": {

@@ -7,206 +7,518 @@
 //   fgs  [E, L, 3C, N]  target samples, rows f1 | gx | gy (d-major grads)
 //   f0   [E, L, C, N]   source features
 //   gate [E, N]
-//   kx, ky [E, dim, N]  K-rows, dim = 13 + CS
-// Outputs, un-normalised: ata [E, dim, dim], atb [E, dim], err [E], n_inl [E].
+//   kx, ky [E, dim, N]  K-rows, dim = 13 + CS <= 29
+// Output, un-normalised, in the TPU kernel's padded layout: out [E, 32, 32]
+// holds ata in [:dim, :dim], atb in column dim, err at [dim+1, dim+1] and
+// n_inl at [dim+1, dim+2] (the wrapper returns views of it).
 //
-// Bound: memory. Every input is read once (about 93 MB at the window-BA
-// bench point E=24, L=4, C=16, N=3072, dim=29); the arithmetic is well
-// under a GFLOP.
+// Bound: memory. Every input is read once, about 93 MB at the window-BA
+// bench point (E=24, L=4, C=16, N=3072, dim=29): 28 us at 3.35 TB/s. The
+// contraction is ~0.3 GFLOP, ~5 us at the FP32 peak, so it must hide
+// behind the stream rather than follow it. The design:
 //
-// Stage A, grid (ceil(N/TN), E), one thread per point: the thread walks
-// the L levels and C channels with loads coalesced along N, keeps the
-// level-weighted Gram terms in registers and applies gate^2. The block
-// stages its tile's K-rows and Gram terms in shared memory (row stride
-// TN+1, so threads reading different rows hit different banks) and reduces
-// the tile into one partial vector: the upper triangle of ata (row by row),
-// then atb, err and n_inl. Stage B sums the partials of each edge over the
-// tiles in tile order (deterministic, no atomics) and writes ata(i, j) and
-// ata(j, i) from one sum, so ata is bit-symmetric. The partials buffer is
-// allocated by the caller.
+// * Split by what each input needs. fgs and f0 (81% of the bytes) feed one
+//   point's Gram terms each: they go straight from device memory into
+//   registers, 16-byte loads of 4 consecutive points (scalar loads when
+//   N % 4 != 0 or a base is not 16-byte aligned), streaming cache hint.
+//   Only the K-rows go through shared memory, by cp.async into a 2-stage
+//   ring: tile t+1's copies are in flight while tile t is contracted.
+// * Keep device memory streaming. Each block is warp-specialised: 6
+//   producer warps stream fgs/f0 and reduce them to the per-point,
+//   gate^2-scaled Gram terms of tile t+1 while 4 consumer warps contract
+//   tile t; the two meet at named barriers over double-buffered terms in
+//   shared memory. Loads wait for a contraction only when the consumers fall
+//   two tiles behind, and the blocks need not drift apart.
+// * A loop inside the block replaces the TPU's sequential grid axis. The
+//   grid is (splits, E); a block walks one point range of one edge in
+//   64-point tiles and keeps its 32x32 outputs in registers. The wrapper
+//   sizes the splits to fill every resident block slot once, and the
+//   ranges are equal to 4 points (not whole tiles), so no SM waits on
+//   another. A second tiny pass sums the splits of each edge in split
+//   order: deterministic, no atomics, and ata[i, j] and ata[j, i] come
+//   from one sum (bit-symmetric). (Summing in the edge's last block instead,
+//   behind an integer ticket, measured slower: its serial tail outlasts the
+//   second launch.)
+// * A cheap contraction. Per tile, kgx = gxx kx + gxy ky and kgy = gxy kx +
+//   gyy ky are formed once per row (not once per output), then the padded
+//   product out += Kx^T Kgx + Ky^T Kgy is register-tiled: each consumer
+//   thread owns 4x4 outputs (rows ti + 8a, columns tj + 8b) over half of
+//   the tile's points, so one 16-byte shared load feeds 8 FMAs, and the
+//   [quad][row][4 points] layout keeps the loads free of bank conflicts.
+//   Only the upper triangle is summed (every output the caller reads lies
+//   there: ata's upper half, atb, err, n_inl); the second pass mirrors ata.
+//   The TPU kernel's padding trick gives every output from that one loop:
+//   padded kx row dim+1 is ones, padded kgx rows dim, dim+1, dim+2 carry
+//   hx, gate^2 sum_l w_l d^2 and gate^2, padded kgy row dim carries hy.
+// * Precision: FP32 FFMA. The JAX kernel pins Precision.HIGHEST; TF32
+//   tensor cores would break its tolerances, and 3xTF32 buys nothing on a
+//   kernel bound by bytes.
+// * Tried and measured slower on the H100, so not used here: bringing
+//   fgs/f0 in through a shared-memory ring of TMA bulk copies on mbarriers
+//   (one copy per 256-byte row), an L2 bulk prefetch of the next tile, 8
+//   or 4 producer warps instead of 6, and one or four rows of loads in
+//   flight per producer instead of two. See PERF.md.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
-#define TN 128
+#define TN 64                  // points per tile
+#define QUADS (TN / 4)         // 4-point groups per tile
+#define PAD 32                 // padded output width: dim + 3 <= PAD
+#define MAX_DIM (PAD - 3)
 #define MAX_LEVELS 8
-#define MAX_DIM 32
-#define KSTRIDE (TN + 1)
-#define SUM_THREADS 256
+#define PRODUCERS 192          // 6 warps: fgs/f0, gate -> per-point Gram terms
+#define CONSUMERS 128          // 4 warps: K-rows, kgx/kgy, the contraction
+#define THREADS (PRODUCERS + CONSUMERS)
+#define MIN_BLOCKS 2           // resident blocks per SM the kernel is built for
+#define SLICES (PRODUCERS / QUADS)  // (level, channel) slices of a quad
+#define GROUPS (CONSUMERS / 64)     // point groups of the contraction
+#define NTERMS 7               // gxx gxy gyy hx hy sum_l w_l d^2, all times g^2; g^2
+#define COMBINE_THREADS 256
 
-struct LevelParams {
-  float w[MAX_LEVELS];
-  float rx[MAX_LEVELS];
-  float ry[MAX_LEVELS];
+// Named barriers (0 is __syncthreads).
+#define BAR_FULL 1       // + b: producers -> consumers, terms[b] written
+#define BAR_FREE 3       // + b: consumers -> producers, terms[b] read
+#define BAR_CONSUMERS 5  // consumers only
+#define BAR_PRODUCERS 6  // producers only
+
+// Shared memory, in floats (every offset a multiple of 4: 16-byte aligned).
+#define KTILE (QUADS * PAD * 4)            // one [quad][row][4 points] array
+#define STAGE (2 * KTILE)                  // kx, ky of one tile
+#define HANDOFF (PRODUCERS / 32 * 6 * TN)  // one partial per producer warp
+#define TERMS (NTERMS * TN)
+#define OFF_HANDOFF (2 * STAGE)
+#define OFF_TERMS (OFF_HANDOFF + 2 * HANDOFF)
+#define OFF_KG (OFF_TERMS + 2 * TERMS)  // kgx, kgy; at the end the group sums
+#define OFF_COEF (OFF_KG + 2 * KTILE)
+#define SMEM_FLOATS (OFF_COEF + MAX_LEVELS * 8)
+#define SMEM_BYTES (SMEM_FLOATS * 4)
+
+// Per level: w rx^2, w rx ry, w ry^2, w rx | w ry, w, 0, 0.
+struct LevelCoef {
+  float c[MAX_LEVELS * 8];
 };
 
-// Output slot o < dim*(dim+1)/2 -> (i, j), i <= j, rows of the upper
-// triangle in order (row i holds j = i .. dim-1).
-__device__ __forceinline__ void pair_of(int o, int dim, int* i, int* j) {
-  int row = 0;
-  int start = 0;
-  while (o >= start + (dim - row)) {
-    start += dim - row;
-    ++row;
-  }
-  *i = row;
-  *j = row + (o - start);
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
-__global__ void __launch_bounds__(TN) photo_reduce_tiles(
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool live) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(live ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool live) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(live ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_prev() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// The first point of split s of [0, N): 4-aligned, equal to 4 points.
+// photo_reduce.split_ranges on the host cuts the same way.
+__device__ __forceinline__ int split_start(int s, int splits, int N) {
+  return s == splits ? N : (int)(((long long)s * N / splits) & ~3LL);
+}
+
+// Points n .. n+3 of one row (zero from hi on).
+template <bool kVec>
+__device__ __forceinline__ float4 load_quad(const float* p, int n, int hi) {
+  if (kVec) {
+    return n < hi ? __ldcs(reinterpret_cast<const float4*>(p)) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  float4 v;
+  v.x = n < hi ? __ldcs(p) : 0.f;
+  v.y = n + 1 < hi ? __ldcs(p + 1) : 0.f;
+  v.z = n + 2 < hi ? __ldcs(p + 2) : 0.f;
+  v.w = n + 3 < hi ? __ldcs(p + 3) : 0.f;
+  return v;
+}
+
+// Consumers: cp.async of one tile's K-rows (rows < dim), points n0 ..
+// n0+TN-1 (zero from hi on), into a ring stage.
+template <bool kVec>
+__device__ __forceinline__ void load_k_rows(float* stage, const float* __restrict__ kx,
+                                            const float* __restrict__ ky, int ct, int e, int n0,
+                                            int hi, int N, int dim) {
+  if (kVec) {
+    // 16-byte units: a warp covers 8 rows x 4 quads, so each row reads
+    // 64 contiguous bytes and each 8-lane phase writes 8 consecutive units.
+    for (int u = ct; u < 2 * PAD * QUADS; u += CONSUMERS) {
+      const int row = (u & 7) + 8 * ((u >> 5) & 3);
+      const int q = ((u >> 3) & 3) + 4 * ((u >> 7) & 3);
+      const int arr = u >> 9;
+      if (row >= dim) continue;
+      const int n = n0 + 4 * q;
+      const float* src = (arr ? ky : kx) + ((size_t)e * dim + row) * N + n;
+      cp_async16(stage + arr * KTILE + (q * PAD + row) * 4, n < hi ? src : kx, n < hi);
+    }
+  } else {
+    for (int u = ct; u < 2 * dim * TN; u += CONSUMERS) {
+      const int m = u % TN;
+      const int row = (u / TN) % dim;
+      const int arr = u / (TN * dim);
+      const int n = n0 + m;
+      const float* src = (arr ? ky : kx) + ((size_t)e * dim + row) * N + n;
+      cp_async4(stage + arr * KTILE + ((m >> 2) * PAD + row) * 4 + (m & 3), n < hi ? src : kx,
+                n < hi);
+    }
+  }
+}
+
+// Producers: per point of each tile, sum_l w_l (rx^2 gx.gx, rx ry gx.gy,
+// ry^2 gy.gy, rx gx.d, ry gy.d, d.d) over (level, channel), one partial per
+// warp, then the warps' partials in warp order times gate^2 into
+// terms[tile & 1].
+template <bool kVec>
+__device__ __forceinline__ void produce(const float* __restrict__ fgs,
+                                        const float* __restrict__ f0,
+                                        const float* __restrict__ gate, float* smem, int e,
+                                        int L, int C, int N, int lo, int hi, int n_tiles) {
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int q = t % QUADS;      // this thread's point quad
+  const int slice = t / QUADS;  // and its (level, channel) rows slice, slice + SLICES, ..
+  const int K = L * C;
+  const int dl = SLICES / C, dc = SLICES % C;  // (level, channel) step of a slice
+  const float4* coef = reinterpret_cast<const float4*>(smem + OFF_COEF);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int b = i & 1;
+    const int n0 = lo + i * TN;
+    const int n = n0 + 4 * q;
+    // this thread's point in the terms step below (t % TN for all of its items)
+    const float gv = n0 + t % TN < hi ? __ldg(gate + (size_t)e * N + n0 + t % TN) : 0.f;
+    float g[6][4];
+#pragma unroll
+    for (int j = 0; j < 6; ++j)
+#pragma unroll
+      for (int p = 0; p < 4; ++p) g[j][p] = 0.f;
+    int l = slice / C, c = slice % C;
+#pragma unroll 2  // two (level, channel) rows of loads in flight
+    for (int k = slice; k < K; k += SLICES) {
+      const float* fg = fgs + ((size_t)(e * L + l) * 3 * C + c) * N + n;
+      const float* fz = f0 + ((size_t)(e * L + l) * C + c) * N + n;
+      const float4 v1 = load_quad<kVec>(fg, n, hi);
+      const float4 vx = load_quad<kVec>(fg + (size_t)C * N, n, hi);
+      const float4 vy = load_quad<kVec>(fg + (size_t)2 * C * N, n, hi);
+      const float4 v0 = load_quad<kVec>(fz, n, hi);
+      const float4 ca = coef[2 * l];
+      const float4 cb = coef[2 * l + 1];
+      const float x[4] = {vx.x, vx.y, vx.z, vx.w};
+      const float y[4] = {vy.x, vy.y, vy.z, vy.w};
+      const float d[4] = {v0.x - v1.x, v0.y - v1.y, v0.z - v1.z, v0.w - v1.w};
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        g[0][p] = fmaf(ca.x, x[p] * x[p], g[0][p]);
+        g[1][p] = fmaf(ca.y, x[p] * y[p], g[1][p]);
+        g[2][p] = fmaf(ca.z, y[p] * y[p], g[2][p]);
+        g[3][p] = fmaf(ca.w, x[p] * d[p], g[3][p]);
+        g[4][p] = fmaf(cb.x, y[p] * d[p], g[4][p]);
+        g[5][p] = fmaf(cb.y, d[p] * d[p], g[5][p]);
+      }
+      l += dl;
+      c += dc;
+      if (c >= C) {
+        c -= C;
+        ++l;
+      }
+    }
+    // the warp's two slices (lanes l and l+16 share a quad)
+#pragma unroll
+    for (int j = 0; j < 6; ++j)
+#pragma unroll
+      for (int p = 0; p < 4; ++p) g[j][p] += __shfl_xor_sync(0xffffffffu, g[j][p], 16);
+    float* part = smem + OFF_HANDOFF + b * HANDOFF;
+    if (lane < 16) {
+#pragma unroll
+      for (int j = 0; j < 6; ++j) {
+        reinterpret_cast<float4*>(part + (warp * 6 + j) * TN)[q] =
+            make_float4(g[j][0], g[j][1], g[j][2], g[j][3]);
+      }
+    }
+    bar_sync(BAR_PRODUCERS, PRODUCERS);  // every warp's partial of this tile
+    if (i >= 2) bar_sync(BAR_FREE + b, THREADS);  // consumers are done with terms[b]
+    float* terms = smem + OFF_TERMS + b * TERMS;
+    const float g2 = gv * gv;
+    for (int u = t; u < NTERMS * TN; u += PRODUCERS) {
+      const int term = u / TN;
+      const int m = u % TN;
+      float sum = 1.f;
+      if (term < 6) {
+        sum = 0.f;
+#pragma unroll
+        for (int w = 0; w < PRODUCERS / 32; ++w) sum += part[(w * 6 + term) * TN + m];
+      }
+      terms[u] = g2 * sum;
+    }
+    bar_arrive(BAR_FULL + b, THREADS);
+  }
+}
+
+// Consumers: the padded product of the block's tiles, then the block's
+// partial [32, 32] (point groups summed in group order).
+template <bool kVec>
+__device__ __forceinline__ void consume(const float* __restrict__ kx,
+                                        const float* __restrict__ ky, float* smem,
+                                        float* __restrict__ partial, int e, int split,
+                                        int splits, int N, int dim, int lo, int hi,
+                                        int n_tiles) {
+  const int ct = threadIdx.x - PRODUCERS;
+  float* s_kgx = smem + OFF_KG;
+  float* s_kgy = s_kgx + KTILE;
+  // output rows ti + 8a, columns tj + 8b, point group grp
+  const int grp = ct / 64;
+  const int ti = (ct % 64) / 8;
+  const int tj = ct % 8;
+  float acc[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+
+  load_k_rows<kVec>(smem, kx, ky, ct, e, lo, hi, N, dim);
+  cp_async_commit();
+  for (int i = 0; i < n_tiles; ++i) {
+    const int b = i & 1;
+    const int n0 = lo + i * TN;
+    const float* stage = smem + b * STAGE;
+    if (i + 1 < n_tiles) {
+      // the other stage was last read before the previous tile's last barrier
+      load_k_rows<kVec>(smem + (b ^ 1) * STAGE, kx, ky, ct, e, n0 + TN, hi, N, dim);
+    }
+    cp_async_commit();  // possibly empty: this tile's group is then never the newest
+    cp_async_wait_prev();
+    bar_sync(BAR_FULL + b, THREADS);  // the producers' terms, every consumer's copies
+
+    // padded kgx, kgy rows of this tile
+    {
+      const float4* terms = reinterpret_cast<const float4*>(smem + OFF_TERMS + b * TERMS);
+      const float4* skx = reinterpret_cast<const float4*>(stage);
+      const float4* sky = reinterpret_cast<const float4*>(stage + KTILE);
+      for (int u = ct; u < QUADS * PAD; u += CONSUMERS) {
+        const int row = u % PAD;
+        const int qq = u / PAD;
+        const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+        float4 X = zero, Y = zero;
+        if (row < dim) {
+          const float4 gxx = terms[0 * QUADS + qq], gxy = terms[1 * QUADS + qq],
+                       gyy = terms[2 * QUADS + qq];
+          const float4 x = skx[u], y = sky[u];
+          X = make_float4(fmaf(gxy.x, y.x, gxx.x * x.x), fmaf(gxy.y, y.y, gxx.y * x.y),
+                          fmaf(gxy.z, y.z, gxx.z * x.z), fmaf(gxy.w, y.w, gxx.w * x.w));
+          Y = make_float4(fmaf(gyy.x, y.x, gxy.x * x.x), fmaf(gyy.y, y.y, gxy.y * x.y),
+                          fmaf(gyy.z, y.z, gxy.z * x.z), fmaf(gyy.w, y.w, gxy.w * x.w));
+        } else if (row == dim) {
+          X = terms[3 * QUADS + qq];
+          Y = terms[4 * QUADS + qq];
+        } else if (row == dim + 1) {
+          X = terms[5 * QUADS + qq];
+        } else if (row == dim + 2) {
+          X = terms[6 * QUADS + qq];
+        }
+        reinterpret_cast<float4*>(s_kgx)[u] = X;
+        reinterpret_cast<float4*>(s_kgy)[u] = Y;
+      }
+    }
+    if (i + 2 < n_tiles) bar_arrive(BAR_FREE + b, THREADS);  // producers may refill terms[b]
+    bar_sync(BAR_CONSUMERS, CONSUMERS);
+
+    // out += Kx^T Kgx + Ky^T Kgy over this group's quads of the tile
+    {
+      const float4* X4 = reinterpret_cast<const float4*>(stage);
+      const float4* Y4 = reinterpret_cast<const float4*>(stage + KTILE);
+      const float4* GX4 = reinterpret_cast<const float4*>(s_kgx);
+      const float4* GY4 = reinterpret_cast<const float4*>(s_kgy);
+      const int live_quads = min(QUADS, (hi - n0 + 3) / 4);
+      for (int qq = grp; qq < live_quads; qq += GROUPS) {
+        float4 ax[4], ay[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          ax[a] = X4[qq * PAD + ti + 8 * a];
+          ay[a] = Y4[qq * PAD + ti + 8 * a];
+        }
+#pragma unroll
+        for (int b2 = 0; b2 < 4; ++b2) {
+          const float4 bx = GX4[qq * PAD + tj + 8 * b2];
+          const float4 by = GY4[qq * PAD + tj + 8 * b2];
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+            // only the upper triangle (row <= column): rows ti + 8a < tj + 8b2
+            // when a < b2, never when a > b2
+            if (a > b2 || (a == b2 && ti > tj)) continue;
+            float s = acc[a][b2];
+            s = fmaf(ax[a].x, bx.x, s);
+            s = fmaf(ay[a].x, by.x, s);
+            s = fmaf(ax[a].y, bx.y, s);
+            s = fmaf(ay[a].y, by.y, s);
+            s = fmaf(ax[a].z, bx.z, s);
+            s = fmaf(ay[a].z, by.z, s);
+            s = fmaf(ax[a].w, bx.w, s);
+            s = fmaf(ay[a].w, by.w, s);
+            acc[a][b2] = s;
+          }
+        }
+      }
+    }
+    bar_sync(BAR_CONSUMERS, CONSUMERS);
+  }
+
+  // the point groups' sums in group order -> this split's partial
+  float* red = smem + OFF_KG;
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) red[grp * PAD * PAD + (ti + 8 * a) * PAD + tj + 8 * b] = acc[a][b];
+  bar_sync(BAR_CONSUMERS, CONSUMERS);
+  float* mine = partial + ((size_t)e * splits + split) * PAD * PAD;
+  for (int o = ct; o < PAD * PAD; o += CONSUMERS) {
+    float sum = red[o];
+#pragma unroll
+    for (int g = 1; g < GROUPS; ++g) sum += red[g * PAD * PAD + o];
+    mine[o] = sum;
+  }
+}
+
+// Per block: the padded 32x32 product of one point range of edge
+// blockIdx.y, written to partial[e, split].
+template <bool kVec>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) photo_reduce_split(
     const float* __restrict__ fgs, const float* __restrict__ f0,
     const float* __restrict__ gate, const float* __restrict__ kx,
-    const float* __restrict__ ky, float* __restrict__ partial, int L, int C,
-    int N, int dim, LevelParams p) {
-  __shared__ float s_kx[MAX_DIM * KSTRIDE];
-  __shared__ float s_ky[MAX_DIM * KSTRIDE];
-  // gate^2-scaled gxx, gxy, gyy, hx, hy, sum_l w_l d^2, and gate^2
-  __shared__ float s_g[7][TN];
-
-  const int tile = blockIdx.x;
-  const int e = blockIdx.y;
+    const float* __restrict__ ky, float* __restrict__ partial, int L, int C, int N,
+    int dim, LevelCoef coef) {
+  extern __shared__ __align__(16) float smem[];
   const int t = threadIdx.x;
-  const int n = tile * TN + t;
-  const bool live = n < N;
+  const int split = blockIdx.x;
+  const int splits = gridDim.x;
+  const int e = blockIdx.y;
+  const int lo = split_start(split, splits, N);
+  const int hi = split_start(split + 1, splits, N);
+  const int n_tiles = (hi - lo + TN - 1) / TN;
 
-  float gxx = 0.f, gxy = 0.f, gyy = 0.f, hx = 0.f, hy = 0.f, esum = 0.f;
-  float g2 = 0.f;
-  if (live) {
-    const float g = gate[(size_t)e * N + n];
-    g2 = g * g;
-    for (int l = 0; l < L; ++l) {
-      const float* fg = fgs + (size_t)(e * L + l) * 3 * C * N + n;
-      const float* fz = f0 + (size_t)(e * L + l) * C * N + n;
-      float sxx = 0.f, sxy = 0.f, syy = 0.f, sx = 0.f, sy = 0.f, sd = 0.f;
-#pragma unroll 4
-      for (int c = 0; c < C; ++c) {
-        const float f1 = fg[(size_t)c * N];
-        const float gx = fg[(size_t)(C + c) * N];
-        const float gy = fg[(size_t)(2 * C + c) * N];
-        const float d = fz[(size_t)c * N] - f1;
-        sxx = fmaf(gx, gx, sxx);
-        sxy = fmaf(gx, gy, sxy);
-        syy = fmaf(gy, gy, syy);
-        sx = fmaf(gx, d, sx);
-        sy = fmaf(gy, d, sy);
-        sd = fmaf(d, d, sd);
-      }
-      const float wl = p.w[l];
-      const float rx = p.rx[l];
-      const float ry = p.ry[l];
-      gxx = fmaf(wl * rx * rx, sxx, gxx);
-      gxy = fmaf(wl * rx * ry, sxy, gxy);
-      gyy = fmaf(wl * ry * ry, syy, gyy);
-      hx = fmaf(wl * rx, sx, hx);
-      hy = fmaf(wl * ry, sy, hy);
-      esum = fmaf(wl, sd, esum);
-    }
-  }
-  s_g[0][t] = g2 * gxx;
-  s_g[1][t] = g2 * gxy;
-  s_g[2][t] = g2 * gyy;
-  s_g[3][t] = g2 * hx;
-  s_g[4][t] = g2 * hy;
-  s_g[5][t] = g2 * esum;
-  s_g[6][t] = g2;
-  for (int r = 0; r < dim; ++r) {
-    const size_t src = ((size_t)e * dim + r) * N + n;
-    s_kx[r * KSTRIDE + t] = live ? kx[src] : 0.f;
-    s_ky[r * KSTRIDE + t] = live ? ky[src] : 0.f;
+  if (t < L * 8) smem[OFF_COEF + t] = coef.c[t];
+  // padded K-rows of both stages: row dim+1 of kx is ones, the rest zero
+  for (int u = t; u < 2 * 2 * QUADS * PAD; u += THREADS) {
+    const int row = u % PAD;
+    if (row < dim) continue;
+    const int q = (u / PAD) % QUADS;
+    const int arr = (u / (PAD * QUADS)) & 1;
+    const int st = u / (2 * PAD * QUADS);
+    const float v = (arr == 0 && row == dim + 1) ? 1.f : 0.f;
+    reinterpret_cast<float4*>(smem + st * STAGE + arr * KTILE)[q * PAD + row] =
+        make_float4(v, v, v, v);
   }
   __syncthreads();
-
-  const int npairs = dim * (dim + 1) / 2;
-  const int nout = npairs + dim + 2;
-  const int count = min(TN, N - tile * TN);  // live points of this tile
-  float* out = partial + ((size_t)e * gridDim.x + tile) * nout;
-  for (int o = t; o < nout; o += TN) {
-    float acc = 0.f;
-    if (o < npairs) {
-      int i, j;
-      pair_of(o, dim, &i, &j);
-      const float* xi = s_kx + i * KSTRIDE;
-      const float* yi = s_ky + i * KSTRIDE;
-      const float* xj = s_kx + j * KSTRIDE;
-      const float* yj = s_ky + j * KSTRIDE;
-      for (int m = 0; m < count; ++m) {
-        const float kgx = fmaf(s_g[1][m], yj[m], s_g[0][m] * xj[m]);
-        const float kgy = fmaf(s_g[2][m], yj[m], s_g[1][m] * xj[m]);
-        acc = fmaf(xi[m], kgx, acc);
-        acc = fmaf(yi[m], kgy, acc);
-      }
-    } else if (o < npairs + dim) {
-      const float* xi = s_kx + (o - npairs) * KSTRIDE;
-      const float* yi = s_ky + (o - npairs) * KSTRIDE;
-      for (int m = 0; m < count; ++m) {
-        acc = fmaf(xi[m], s_g[3][m], acc);
-        acc = fmaf(yi[m], s_g[4][m], acc);
-      }
-    } else {
-      const float* v = s_g[o == npairs + dim ? 5 : 6];
-      for (int m = 0; m < count; ++m) acc += v[m];
-    }
-    out[o] = acc;
+  if (t < PRODUCERS) {
+    produce<kVec>(fgs, f0, gate, smem, e, L, C, N, lo, hi, n_tiles);
+  } else {
+    consume<kVec>(kx, ky, smem, partial, e, split, splits, N, dim, lo, hi, n_tiles);
   }
 }
 
-__global__ void __launch_bounds__(SUM_THREADS) photo_reduce_sum(
-    const float* __restrict__ partial, float* __restrict__ ata,
-    float* __restrict__ atb, float* __restrict__ err,
-    float* __restrict__ n_inl, int n_tiles, int dim) {
-  const int e = blockIdx.x;
-  const int npairs = dim * (dim + 1) / 2;
-  const int nout = npairs + dim + 2;
-  const float* src = partial + (size_t)e * n_tiles * nout;
-  for (int o = threadIdx.x; o < nout; o += SUM_THREADS) {
-    float acc = 0.f;
-    for (int tile = 0; tile < n_tiles; ++tile) acc += src[(size_t)tile * nout + o];
-    if (o < npairs) {
-      int i, j;
-      pair_of(o, dim, &i, &j);
-      ata[((size_t)e * dim + i) * dim + j] = acc;
-      ata[((size_t)e * dim + j) * dim + i] = acc;
-    } else if (o < npairs + dim) {
-      atb[(size_t)e * dim + (o - npairs)] = acc;
-    } else if (o == npairs + dim) {
-      err[e] = acc;
-    } else {
-      n_inl[e] = acc;
+// Per (edge, quarter of the outputs): the splits' partials summed in split
+// order, 8 loads in flight. The lower triangle of ata is read from the
+// upper partials, so ata is bit-symmetric.
+__global__ void __launch_bounds__(COMBINE_THREADS) photo_reduce_combine(
+    const float* __restrict__ partial, float* __restrict__ out, int splits, int dim) {
+  const int e = blockIdx.y;
+  const int o = blockIdx.x * COMBINE_THREADS + threadIdx.x;
+  const int r = o / PAD;
+  const int c = o % PAD;
+  const float* p = partial + (size_t)e * splits * PAD * PAD + ((r > c && r < dim) ? c * PAD + r : o);
+  float sum = 0.f;
+  for (int s0 = 0; s0 < splits; s0 += 8) {
+    float v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = s0 + k < splits ? p[(size_t)(s0 + k) * PAD * PAD] : 0.f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if (s0 + k < splits) sum += v[k];
     }
   }
+  out[(size_t)e * PAD * PAD + o] = sum;
 }
-
-extern "C" int photo_reduce_num_tiles(int n) { return (n + TN - 1) / TN; }
 
 extern "C" const char* photo_reduce_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// Sets the kernels' shared-memory limit on the current device and returns
+// its resident block slots (blocks per SM x SMs), or a negative CUDA error
+// code. Call once per device before photo_reduce_launch.
+extern "C" int photo_reduce_slots(void) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t st = cudaGetDevice(&dev);
+  if (st == cudaSuccess) st = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (st == cudaSuccess) {
+    st = cudaFuncSetAttribute(photo_reduce_split<true>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  }
+  if (st == cudaSuccess) {
+    st = cudaFuncSetAttribute(photo_reduce_split<false>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  }
+  if (st == cudaSuccess) {
+    st = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, photo_reduce_split<true>, THREADS,
+                                                       SMEM_BYTES);
+  }
+  if (st != cudaSuccess) return -static_cast<int>(st);
+  return per_sm * sms;
+}
+
 // host_params: L weights, then L x-ratios, then L y-ratios (host memory).
-// partial: [E, photo_reduce_num_tiles(N), dim*(dim+1)/2 + dim + 2] scratch.
-// Returns cudaGetLastError() after the launches (0 on success).
-extern "C" int photo_reduce_launch(const float* fgs, const float* f0,
-                                   const float* gate, const float* kx,
-                                   const float* ky, float* partial, float* ata,
-                                   float* atb, float* err, float* n_inl, int E,
-                                   int L, int C, int N, int dim,
+// partial: [E, splits, 32, 32] scratch; out: [E, 32, 32]; splits <= N / 64
+// (or 1). Returns cudaGetLastError() after the launches (0 on success).
+extern "C" int photo_reduce_launch(const float* fgs, const float* f0, const float* gate,
+                                   const float* kx, const float* ky, float* partial, float* out,
+                                   int E, int L, int C, int N, int dim, int splits,
                                    const float* host_params, void* stream) {
-  if (E < 1 || L < 1 || L > MAX_LEVELS || C < 1 || N < 1 || dim < 1 ||
-      dim > MAX_DIM) {
+  if (E < 1 || E > 65535 || L < 1 || L > MAX_LEVELS || C < 1 || N < 1 || dim < 1 ||
+      dim > MAX_DIM || splits < 1 || (splits > 1 && splits > N / TN)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  LevelParams p = {};
+  LevelCoef coef = {};
   for (int l = 0; l < L; ++l) {
-    p.w[l] = host_params[l];
-    p.rx[l] = host_params[L + l];
-    p.ry[l] = host_params[2 * L + l];
+    const float w = host_params[l], rx = host_params[L + l], ry = host_params[2 * L + l];
+    float* c = coef.c + l * 8;
+    c[0] = w * rx * rx;
+    c[1] = w * rx * ry;
+    c[2] = w * ry * ry;
+    c[3] = w * rx;
+    c[4] = w * ry;
+    c[5] = w;
   }
+  const uintptr_t align = reinterpret_cast<uintptr_t>(fgs) | reinterpret_cast<uintptr_t>(f0) |
+                          reinterpret_cast<uintptr_t>(gate) | reinterpret_cast<uintptr_t>(kx) |
+                          reinterpret_cast<uintptr_t>(ky);
+  const bool vec = N % 4 == 0 && (align & 15) == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_tiles = photo_reduce_num_tiles(N);
-  photo_reduce_tiles<<<dim3(n_tiles, E), TN, 0, s>>>(fgs, f0, gate, kx, ky,
-                                                      partial, L, C, N, dim, p);
-  cudaError_t status = cudaGetLastError();
-  if (status != cudaSuccess) return static_cast<int>(status);
-  photo_reduce_sum<<<E, SUM_THREADS, 0, s>>>(partial, ata, atb, err, n_inl,
-                                             n_tiles, dim);
+  const dim3 grid(splits, E);
+  if (vec) {
+    photo_reduce_split<true><<<grid, THREADS, SMEM_BYTES, s>>>(fgs, f0, gate, kx, ky, partial,
+                                                               L, C, N, dim, coef);
+  } else {
+    photo_reduce_split<false><<<grid, THREADS, SMEM_BYTES, s>>>(fgs, f0, gate, kx, ky, partial,
+                                                                L, C, N, dim, coef);
+  }
+  cudaError_t st = cudaGetLastError();
+  if (st != cudaSuccess) return static_cast<int>(st);
+  photo_reduce_combine<<<dim3(PAD * PAD / COMBINE_THREADS, E), COMBINE_THREADS, 0, s>>>(
+      partial, out, splits, dim);
   return static_cast<int>(cudaGetLastError());
 }

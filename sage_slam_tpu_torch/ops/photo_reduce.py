@@ -14,18 +14,25 @@ gate^2; then, over points, the un-normalised
   err = sum gate^2 sum_l w_l sum_c d^2                    [E]
   n_inl = sum gate^2                                      [E]
 
-The kernel (csrc/photo_reduce.cu) is bound by memory: at the window-BA
-bench point (E=24, L=4, C=16, N=3072, dim=29) it must read about 93 MB
-(fgs 56.6 MB, f0 18.9 MB, kx+ky 17.1 MB, gate 0.3 MB) and does well under
-a GFLOP of FP32 work. Its design: stage A runs one thread per point over a
-grid (point tiles, edges), forms the Gram sums in registers with loads
-coalesced along N, stages the tile's K-rows and Gram terms in shared
-memory, and reduces the tile into a partial upper triangle of ata plus
-atb, err and n_inl; stage B sums the partials over tiles in a fixed order
-(deterministic) and writes (i, j) and (j, i) from one sum, so ata is
-bit-symmetric. FP32 FMA only: no TF32, no tensor cores. The TPU kernel's
-revisited output block and its padded-rows-ride-the-MXU trick are TPU
-devices and have no counterpart here.
+The kernel (csrc/photo_reduce.cu, whose note has the details) is bound
+by memory: at the window-BA bench point (E=24, L=4, C=16, N=3072, dim=29)
+it must read about 93 MB (fgs 56.6 MB, f0 18.9 MB, kx+ky 17.1 MB, gate
+0.3 MB), 28 us at 3.35 TB/s, against ~0.3 GFLOP of FP32 work. Producer
+warps stream fgs and f0 straight into registers (16-byte loads) and reduce
+them to per-point Gram terms while consumer warps contract the previous
+tile (warp specialisation); the K-rows come through a 2-stage cp.async
+ring. Each block walks one point range in 64-point tiles on a (splits, E)
+grid that ``num_splits`` sizes to fill every resident block slot once. The
+contraction is the TPU kernel's padded product (atb, err and n_inl ride
+padding rows of a 32x32 product), register-tiled 4x4 per thread, upper
+triangle only. A second tiny pass sums the splits in split order and
+mirrors ata: deterministic, no atomics, ata bit-symmetric. FP32 FMA only:
+no TF32, no tensor cores.
+
+The host side is kept small: one output buffer per call (the padded
+[E, 32, 32] result, returned as views by ``unpack_padded``, followed by
+the splits' partials), the split count from a cached occupancy query, one
+ctypes call.
 
 ``photo_reduce`` launches the kernel for CUDA tensors (and raises if the
 build or the launch fails; it never falls back) and runs
@@ -40,8 +47,10 @@ import functools
 
 import torch
 
-MAX_LEVELS = 8  # the kernel's per-level parameter arrays
-MAX_DIM = 32  # the kernel's shared-memory K-row tile (dim = 13 + CS)
+MAX_LEVELS = 8  # the kernel's per-level coefficient arrays
+PAD = 32  # the kernel's padded product width (csrc/photo_reduce.cu PAD)
+MAX_DIM = PAD - 3  # dim = 13 + CS, plus the atb / err / n_inl rows
+TILE_POINTS = 64  # points per tile (csrc/photo_reduce.cu TN)
 
 
 def photo_reduce_ref(fgs, f0_cm, gate, kx, ky, weights, ratios):
@@ -84,15 +93,52 @@ def _library() -> ctypes.CDLL:
 
     lib = load_library("photo_reduce")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.photo_reduce_launch.argtypes = [ptr] * 10 + [i32] * 5 + [
+    lib.photo_reduce_launch.argtypes = [ptr] * 7 + [i32] * 6 + [
         ctypes.POINTER(ctypes.c_float), ptr,
     ]
     lib.photo_reduce_launch.restype = i32
-    lib.photo_reduce_num_tiles.argtypes = [i32]
-    lib.photo_reduce_num_tiles.restype = i32
+    lib.photo_reduce_slots.argtypes = []
+    lib.photo_reduce_slots.restype = i32
     lib.photo_reduce_error_string.argtypes = [i32]
     lib.photo_reduce_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _raise_cuda(what: str, status: int):
+    lib = _library()
+    raise RuntimeError(
+        f"photo_reduce kernel {what} failed: CUDA error {status} "
+        f"({lib.photo_reduce_error_string(status).decode()})"
+    )
+
+
+@functools.cache
+def _slots(device_index: int) -> int:
+    """Resident block slots of the kernel on one card (blocks per SM x SMs)."""
+    with torch.cuda.device(device_index):
+        slots = _library().photo_reduce_slots()
+    if slots <= 0:
+        _raise_cuda("occupancy query", -slots)
+    return slots
+
+
+def num_splits(n: int, e: int, slots: int) -> int:
+    """Blocks per edge: enough that the E x splits grid fills the resident
+    block slots once, with at least TILE_POINTS points per split."""
+    return max(1, min(n // TILE_POINTS, slots // e))
+
+
+def split_ranges(n: int, splits: int) -> list:
+    """The point ranges [start, stop) of an edge's splits, cut as the
+    kernel cuts them (split_start): equal to 4 points, starts 4-aligned."""
+    starts = [(s * n // splits) & ~3 for s in range(splits)] + [n]
+    return list(zip(starts[:-1], starts[1:]))
+
+
+def unpack_padded(out, dim: int):
+    """Views of the padded product [E, P, P] (the TPU kernel's layout):
+    (ata [E, dim, dim], atb [E, dim], err [E], n_inl [E])."""
+    return out[:, :dim, :dim], out[:, :dim, dim], out[:, dim + 1, dim + 1], out[:, dim + 1, dim + 2]
 
 
 def _check_inputs(fgs, f0_cm, gate, kx, ky, weights, ratios):
@@ -149,35 +195,28 @@ def photo_reduce(fgs, f0_cm, gate, kx, ky, weights, ratios):
     for name, t in (("fgs", fgs), ("f0_cm", f0_cm), ("gate", gate), ("kx", kx), ("ky", ky)):
         if not t.is_contiguous():
             raise ValueError(f"photo_reduce kernel: {name} is not contiguous")
-    lib = _library()
     dev = fgs.device
-    n_tiles = lib.photo_reduce_num_tiles(n)
-    n_out = dim * (dim + 1) // 2 + dim + 2
-    partial = torch.empty((e, n_tiles, n_out), dtype=torch.float32, device=dev)
-    ata = torch.empty((e, dim, dim), dtype=torch.float32, device=dev)
-    atb = torch.empty((e, dim), dtype=torch.float32, device=dev)
-    err = torch.empty((e,), dtype=torch.float32, device=dev)
-    n_inl = torch.empty((e,), dtype=torch.float32, device=dev)
+    if dev.index != torch.cuda.current_device():  # the C launcher uses the current card
+        with torch.cuda.device(dev):
+            return photo_reduce(fgs, f0_cm, gate, kx, ky, weights, ratios)
+    lib = _library()
+    splits = num_splits(n, e, _slots(dev.index))
+    # one buffer: the padded result [E, PAD, PAD], then the splits' partials
+    buf = torch.empty((e * (1 + splits), PAD, PAD), dtype=torch.float32, device=dev)
     host = (ctypes.c_float * (3 * lv))(
         *[float(weights[i]) for i in range(lv)],
         *[float(r[0]) for r in ratios],
         *[float(r[1]) for r in ratios],
     )
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.photo_reduce_launch(
-            fgs.data_ptr(), f0_cm.data_ptr(), gate.data_ptr(),
-            kx.data_ptr(), ky.data_ptr(), partial.data_ptr(),
-            ata.data_ptr(), atb.data_ptr(), err.data_ptr(), n_inl.data_ptr(),
-            e, lv, c, n, dim, host, stream,
-        )
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    status = lib.photo_reduce_launch(
+        fgs.data_ptr(), f0_cm.data_ptr(), gate.data_ptr(), kx.data_ptr(), ky.data_ptr(),
+        buf.data_ptr() + 4 * e * PAD * PAD, buf.data_ptr(), e, lv, c, n, dim, splits, host, stream,
+    )
     if status != 0:
-        raise RuntimeError(
-            f"photo_reduce kernel launch failed: CUDA error {status} "
-            f"({lib.photo_reduce_error_string(status).decode()})"
-        )
+        _raise_cuda("launch", status)
     photo_reduce.launches += 1
-    return ata, atb, err, n_inl
+    return unpack_padded(buf[:e], dim)
 
 
 photo_reduce.launches = 0

@@ -8,7 +8,8 @@ L=4, N=3072, 24+24 edges) on the card, warms up, then reports:
 * host-clock ms of one run_ba step, one linearize and one total_error
   (each ending in torch.cuda.synchronize()), means of 5 after warm-up;
 * a torch.profiler trace of one run_ba step: the device time summed by
-  kernel name (top 15), the summed device time against the step's wall
+  kernel name (top 15, then the port's photo_reduce kernels wherever they
+  rank), the summed device time against the step's wall
   time (the device busy share; kernels that overlap count twice, so this
   is an upper bound), and the number of kernel launches.
 
@@ -88,7 +89,9 @@ def main(argv=None):
     print(f"profiled run_ba step [{card}]: wall {wall_ms:.3f} ms, device time "
           f"{device_us / 1e3:.3f} ms summed over {launches} kernel launches, busy "
           f"share <= {device_us / 1e3 / wall_ms:.4f}", flush=True)
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)
+    # the top 15, then the port's own kernels wherever they rank
+    for e in ranked[:15] + [e for e in ranked[15:] if "photo_reduce" in e.key]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
     if args.trace:
         os.makedirs(args.trace, exist_ok=True)
