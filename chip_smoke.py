@@ -26,7 +26,24 @@ Phases, each of which exits non-zero on failure:
    With ``--old-source PATH`` (an earlier photo_reduce.cu with the
    two-stage C interface: tiles, partial sums) that kernel is built too and
    timed in turns with the current one (old, new, new, old);
-6. a JSON line listing every kernel, then the card line, then the last
+6. mapper path: the mapping half of the system at the published widths
+   (SlamConfig(): 128x160 input, 64x80 output, CS=FS=16, L=4, N=3072,
+   window 8, 10 LM iterations, a 256-keyframe store; DepthNetConfig() and
+   FeatureNetConfig() randomly initialised from a seeded torch.Generator)
+   on synthetic.mapper_scene's 16 frames with a circular mask:
+   init_one_frame, then 15 keyframes, each with back connections to the
+   previous 3 and one mapping_step after it (steps 9-16 are steady-state
+   windowed steps). The kernel's launch count is read around this path
+   alone and must equal the LM iterations of its steps; every step must
+   leave the store finite and end at or below its first linearization's
+   error; TF32 must be off after the networks ran; build_frame and the last
+   mapping_step are held against the same calls on the CPU from the same
+   state; the kernel is held against its plain version at this path's
+   steady-state shape and timed there beside the plain version and the
+   library call. Prints build_frame and steady-state mapping_step
+   times, the photometric edge count E the kernel saw per step and the
+   store's bytes;
+7. a JSON line listing every kernel, then the card line, then the last
    line ``{"ok": true, "device": {...}}``.
 
 Imports neither JAX nor the JAX package.
@@ -193,6 +210,236 @@ def compare_reduce(out, ref, binary: bool, label: str):
     return abs_err, rel_err
 
 
+def reduce_bound(prep, peak_bw: float, peak_flops: float):
+    """The reduce's least time on the card for these inputs: the larger of
+    its bytes (each input read once, each output written once) over the
+    memory rate and its FP32 operations over the peak rate ->
+    (bound_ms, "bytes" | "operations", in_bytes, out_bytes, flops)."""
+    fgs, _, _, kx, _ = prep
+    e, lv, c3, n = fgs.shape
+    dim = kx.shape[1]
+    in_bytes = sum(t.numel() * t.element_size() for t in prep)
+    out_bytes = 4 * (e * dim * dim + e * dim + 2 * e)
+    npairs = dim * (dim + 1) // 2
+    flops = e * n * (lv * (c3 // 3) * 13 + npairs * 10 + dim * 4 + 2)
+    t_bytes, t_ops = (in_bytes + out_bytes) / peak_bw, flops / peak_flops
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", in_bytes, out_bytes, flops
+
+
+def library_call(prep):
+    """The library call timed beside the reduce: torch.bmm of its final
+    contraction only, kx @ kgx^T + ky @ kgy^T, on the same K-rows (gradient
+    Gram weights drawn under the gate)."""
+    _, _, gate, kx, ky = prep
+    g2 = gate * gate
+    gxx, gxy, gyy = (torch.rand_like(gate) * g2 for _ in range(3))
+    kgx = gxx[:, None] * kx + gxy[:, None] * ky
+    kgy = gxy[:, None] * kx + gyy[:, None] * ky
+    return lambda: torch.bmm(kx, kgx.transpose(1, 2)) + torch.bmm(ky, kgy.transpose(1, 2))
+
+
+def rel_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over max |b| (on the host, in float64)."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def mapper_path(dev, card: str, peaks) -> dict:
+    """Phase 6: the mapper at the published widths (see the module note).
+    Returns what the kernels line and the summary need."""
+    from sage_slam_tpu_torch import synthetic
+    from sage_slam_tpu_torch.config import SlamConfig
+    from sage_slam_tpu_torch.geometry.camera import CameraPyramid
+    from sage_slam_tpu_torch.geometry.se3 import SE3
+    from sage_slam_tpu_torch.mapping.mapper import Mapper
+    from sage_slam_tpu_torch.models import depth_network, feature_network
+    from sage_slam_tpu_torch.ops import photo_reduce as pr
+    from sage_slam_tpu_torch.ops import photometric
+    from sage_slam_tpu_torch.solver import ba
+
+    cfg = SlamConfig()
+    n_frames, steady_from = 16, 8  # keyframes 9-16 are the steady-state steps
+    scene = synthetic.mapper_scene(n_frames, seed=0, height=cfg.net_input_size[0],
+                                   width=cfg.net_input_size[1])
+    pyr = CameraPyramid.build(scene.camera, cfg.pyramid_levels)
+    gen = torch.Generator().manual_seed(0)
+    dnet = depth_network.init_network(
+        gen, depth_network.DepthNetConfig(basis_inner=((128, 128, cfg.code_size),)))
+    fnet = feature_network.init_network(gen, feature_network.FeatureNetConfig())
+    mapper = Mapper(cfg, pyr, scene.mask_out, dnet, fnet, video_mask_in=scene.mask_in, device=dev)
+    images = torch.from_numpy(scene.images).to(dev)
+    poses = [SE3(torch.from_numpy(scene.rot[f]).to(dev), torch.from_numpy(scene.trans[f]).to(dev))
+             for f in range(n_frames)]
+    say(f"mapper path: {n_frames} frames {tuple(scene.images.shape[2:])} -> "
+        f"{tuple(scene.mask_out.shape)}, mask {int(scene.mask_out.sum())} valid pixels, "
+        f"N={mapper.num_samples}, window {cfg.mapper.window_size}, {cfg.mapper.max_gn_iters} LM "
+        f"iterations, store capacity {cfg.max_keyframes}")
+
+    # each step's first linearization error, read after the step
+    first_errors = []
+    linearize = ba.linearize
+
+    def recording_linearize(*args, **kwargs):
+        out = linearize(*args, **kwargs)
+        first_errors.append(out[2])
+        return out
+
+    steps = []
+    cpu_mapper = None
+    ba.linearize = recording_linearize
+    try:
+        torch.cuda.synchronize()
+        pr.photo_reduce.launches = 0
+        mapper.init_one_frame(0.0, images[0])
+        for f in range(1, n_frames):
+            fr = mapper.build_frame(0.1 * f, images[f], pose=poses[f])
+            n = mapper.store.num_active
+            back = list(range(n - 1, max(-1, n - 1 - cfg.keyframe.temporal_max_back_connections), -1))
+            mapper.enqueue_keyframe(fr, back)
+            if f == n_frames - 1:  # the state the CPU step starts from
+                ba.linearize = linearize
+                cpu_mapper = mapper.clone("cpu")
+                ba.linearize = recording_linearize
+            first_errors.clear()
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            err = mapper.mapping_step()  # ends in a host read of the error
+            stop.record()
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            v = mapper.store.variables
+            if not all(bool(torch.isfinite(t).all()) for t in (*v.pose, v.code, v.scale)):
+                fail(f"mapper path: non-finite store variables after step {f + 1}")
+            first = float(first_errors[0])
+            if not err <= first:
+                fail(f"mapper path: step {f + 1} error {err} above its first linearization's {first}")
+            steps.append(dict(keyframes=f + 1, iters=mapper.last_step_iters,
+                              converged=mapper.last_step_converged, edges=mapper.last_step_edges,
+                              first=first, err=err, host_ms=host_ms,
+                              event_ms=start.elapsed_time(stop)))
+        torch.cuda.synchronize()
+        launches = pr.photo_reduce.launches
+    finally:
+        ba.linearize = linearize
+    iters_total = sum(st["iters"] for st in steps)
+    for st in steps:
+        say(f"  step {st['keyframes']:2d} keyframes: E photo/geo {st['edges'][0]}/{st['edges'][1]}, "
+            f"{st['iters']} iterations, converged {st['converged']}, error {st['first']:.6g} -> "
+            f"{st['err']:.6g}, {st['host_ms']:.3f} ms host, {st['event_ms']:.3f} ms events")
+    say(f"mapper path: photo_reduce launches {launches}, LM iterations {iters_total}")
+    if launches == 0 or launches != iters_total:
+        fail(f"mapper path: photo_reduce launched {launches} times for {iters_total} LM iterations")
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        fail("mapper path: TF32 is allowed after the networks ran")
+
+    # the last step on the CPU from the same state
+    card_last = steps[-1]
+    cpu_err = cpu_mapper.mapping_step()
+    if (cpu_mapper.last_step_iters, cpu_mapper.last_step_converged) != (
+            card_last["iters"], card_last["converged"]):
+        fail(f"mapper step card vs CPU: iterations/converged {card_last['iters']}/"
+             f"{card_last['converged']} vs {cpu_mapper.last_step_iters}/{cpu_mapper.last_step_converged}")
+    n = mapper.store.num_active
+    vg, vc = mapper.store.variables, cpu_mapper.store.variables
+    diffs = {
+        "trans": float((vg.pose.trans[:n].cpu() - vc.pose.trans[:n]).abs().max()),
+        "rot": float((vg.pose.rot[:n].cpu() - vc.pose.rot[:n]).abs().max()),
+        "code": float((vg.code[:n].cpu() - vc.code[:n]).abs().max()),
+        "scale": float(((vg.scale[:n].cpu() - vc.scale[:n]) / vc.scale[:n]).abs().max()),
+    }
+    # float32 roundoff through 10 LM iterations of a 16-keyframe solve
+    # (other sum orders on the card): absolute 1e-4 on poses and codes,
+    # relative 1e-4 on scales; the error to rtol 1e-4
+    if max(diffs.values()) > 1e-4 or abs(cpu_err - card_last["err"]) > 1e-4 * abs(cpu_err):
+        fail(f"mapper step card vs CPU: {diffs}, error {card_last['err']} vs {cpu_err}")
+    say(f"mapper step card vs CPU ({n} keyframes, {card_last['iters']} iterations): max |d| "
+        + ", ".join(f"{k} {v:.3g}" for k, v in diffs.items())
+        + f"; error {card_last['err']:.8g} vs {cpu_err:.8g}: ok")
+
+    # build_frame on the card against the CPU, same image and samples
+    loc = mapper.sample_locations(0.1)
+    fr_g = mapper.build_frame(0.1, images[1], loc1d=loc)
+    fr_c = cpu_mapper.build_frame(0.1, images[1].cpu(), loc1d=loc.cpu())
+    frame_diff = {
+        name: rel_diff(getattr(fr_g, name), getattr(fr_c, name))
+        for name in ("bias_flat", "jac_flat", "feat_pyr", "grad_pyr", "feat_desc_flat",
+                     "src_feats", "packed_fg", "avg_sq_bias")
+    }
+    # cuDNN's float32 convolution algorithms against the CPU's, through 22
+    # partial-conv layers: 1e-3 of each tensor's max |value|
+    if max(frame_diff.values()) > 1e-3:
+        fail(f"build_frame card vs CPU: {frame_diff}")
+    say("build_frame card vs CPU, max |d| / max |value|: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in frame_diff.items()) + ": ok")
+
+    # the kernel at this path's steady-state shape, against its plain version
+    lo = n - cfg.mapper.window_size
+    problem = ba.prepare_problem(
+        ba.slice_problem_keyframes(mapper.build_problem(window_lo=lo), n, pyr), pyr)
+    v = mapper.store.variables
+    pe = problem.photo_edges
+    kf0, fr1, shared = ba._photo_inputs(problem.window, pe)
+    prep = photometric.photo_prep(
+        SE3(v.pose.rot[pe.i0], v.pose.trans[pe.i0]), SE3(v.pose.rot[pe.i1], v.pose.trans[pe.i1]),
+        v.code[pe.i0], v.scale[pe.i0], kf0, fr1, shared, pyr, cfg.mapper.dpt_eps,
+        soft=cfg.mapper.soft_inlier_gate,
+    )
+    weights, ratios = tuple(cfg.mapper.photo_factor_weights), photometric.level_ratios(pyr)
+    saved = pr.photo_reduce.launches
+    out = pr.photo_reduce(*prep, weights, ratios)
+    ref = pr.photo_reduce_ref(*prep, weights, ratios)
+    abs_err, rel_err = compare_reduce(out, ref, False, "mapper steady-state prep inputs")
+    for _ in range(3):
+        pr.photo_reduce(*prep, weights, ratios)
+    t_kernel = device_ms(lambda: pr.photo_reduce(*prep, weights, ratios), 50, "photo_reduce")
+    t_plain = device_ms(lambda: pr.photo_reduce_ref(*prep, weights, ratios), 20)
+    run_library = library_call(prep)
+    run_library()
+    t_library = device_ms(run_library, 50)
+    pr.photo_reduce.launches = saved
+    bound_ms, bound_by, in_b, out_b, _ = reduce_bound(prep, *peaks)
+    say(f"kernel vs plain: photo_reduce on the mapper's steady-state prep inputs "
+        f"{tuple(prep[0].shape)}: ok; [{card}] device {t_kernel:.5f} ms, plain {t_plain:.4f} ms, "
+        f"library bmm of the final contraction {t_library:.4f} ms, bound {bound_ms:.5f} ms by "
+        f"{bound_by} ({(in_b + out_b) / 1e6:.1f} MB) = {bound_ms / t_kernel:.1%} of bound")
+
+    # times after warm-up: build_frame (and its networks alone), steady steps
+    def events_and_host(fn, reps):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps, start.elapsed_time(stop) / reps
+
+    bf_host, bf_ev = events_and_host(lambda: mapper.build_frame(0.1, images[1]), 10)
+    net_host, net_ev = events_and_host(lambda: mapper._networks(images[1]), 10)
+    steady = [st for st in steps if st["keyframes"] > steady_from]
+    step_host = float(np.mean([st["host_ms"] for st in steady]))
+    step_ev = float(np.mean([st["event_ms"] for st in steady]))
+    store_bytes = mapper.store.nbytes()
+    runs = ", ".join(f"{st['host_ms']:.3f}" for st in steady)
+    say(f"time [{card}] build_frame at {scene.images.shape[2]}x{scene.images.shape[3]}: "
+        f"{bf_host:.3f} ms host clock, {bf_ev:.3f} ms CUDA events per frame, mean of 10 after "
+        f"warm-up; the two networks alone {net_host:.3f} ms host, {net_ev:.3f} ms events")
+    say(f"time [{card}] steady-state mapping_step (keyframes {steady[0]['keyframes']}-"
+        f"{steady[-1]['keyframes']}): {step_host:.3f} ms host clock, {step_ev:.3f} ms CUDA events, "
+        f"mean of {len(steady)} (host runs {runs}); "
+        f"photometric E per step {[st['edges'][0] for st in steady]}, photo_reduce launches per step "
+        f"{[st['iters'] for st in steady]}")
+    say(f"mapper path [{card}]: keyframe store {store_bytes} bytes ({store_bytes / 2**30:.3f} GiB) "
+        f"at capacity {cfg.max_keyframes}; peak device memory {torch.cuda.max_memory_allocated()} bytes")
+    return dict(launches=launches, max_abs_err=abs_err, max_rel_err=rel_err,
+                shape=dict(E=int(prep[0].shape[0]), ms=t_kernel, plain_ms=t_plain,
+                           bound_ms=bound_ms, bound_by=bound_by, library_ms=t_library))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old-source", default=None,
@@ -347,12 +594,7 @@ def main() -> None:
     fgs, f0, gate, kx, ky = prep
     e, lv, c3, n = fgs.shape
     dim = kx.shape[1]
-    in_bytes = sum(t.numel() * t.element_size() for t in prep)
-    out_bytes = 4 * (e * dim * dim + e * dim + 2 * e)
-    npairs = dim * (dim + 1) // 2
-    flops = e * n * (lv * (c3 // 3) * 13 + npairs * 10 + dim * 4 + 2)
-    bound_ms = max((in_bytes + out_bytes) / peak_bw, flops / peak_flops) * 1e3
-    bound_by = "bytes" if (in_bytes + out_bytes) / peak_bw >= flops / peak_flops else "operations"
+    bound_ms, bound_by, in_bytes, out_bytes, flops = reduce_bound(prep, peak_bw, peak_flops)
 
     def run_kernel():
         pr.photo_reduce(fgs, f0, gate, kx, ky, weights, ratios)
@@ -360,16 +602,7 @@ def main() -> None:
     def run_plain():
         pr.photo_reduce_ref(fgs, f0, gate, kx, ky, weights, ratios)
 
-    g2 = gate * gate
-    gxx = torch.rand_like(gate) * g2
-    gxy = torch.rand_like(gate) * g2
-    gyy = torch.rand_like(gate) * g2
-    kgx = gxx[:, None] * kx + gxy[:, None] * ky
-    kgy = gxy[:, None] * kx + gyy[:, None] * ky
-
-    def run_library():
-        torch.bmm(kx, kgx.transpose(1, 2)) + torch.bmm(ky, kgy.transpose(1, 2))
-
+    run_library = library_call(prep)
     run_old = None
     if args.old_source:
         old = old_reduce(args.old_source, os.path.join(ROOT, "sage_slam_tpu_torch", "_build"))
@@ -434,13 +667,18 @@ def main() -> None:
         f"CUDA events, mean of {len(step_times)} (host runs "
         f"{', '.join(f'{t:.3f}' for t in step_times)})")
 
-    # ---- 6. result ----
+    # ---- 6. mapper path ----
+    mapped = mapper_path(dev, card, (peak_bw, peak_flops))
+    max_err, max_rel = max(max_err, mapped["max_abs_err"]), max(max_rel, mapped["max_rel_err"])
+
+    # ---- 7. result ----
     kernels = [{
         "name": "photo_reduce",
         "route": "cuda",
         "source": "sage_slam_tpu_torch/ops/csrc/photo_reduce.cu",
         "replaces": "sage_slam_tpu/ops/pallas_kernels.py:118",
-        "launches": launches["photo_reduce"],
+        "launches": launches["photo_reduce"] + mapped["launches"],
+        "launches_by_path": {"run_ba": launches["photo_reduce"], "mapper": mapped["launches"]},
         "max_abs_err": max_err,
         "max_rel_err": max_rel,
         "matched": True,
@@ -451,6 +689,7 @@ def main() -> None:
         "library_ms": t_library,
         "library_call": "torch.bmm of the final contraction kx@kgx^T + ky@kgy^T only",
         "events_ms": ev_kernel,
+        "mapper_shape": mapped["shape"],
     }]
     if run_old:
         kernels[0]["earlier_ms"] = old_ms

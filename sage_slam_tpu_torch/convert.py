@@ -8,6 +8,11 @@ side, or plain mappings with the same keys. The port never imports JAX.
 The photometric sample ids ``loc1d`` travel as data: the JAX package draws
 them with ``jax.random.permutation``, which torch cannot reproduce.
 
+Network weights travel the same way: ``depth_params_from_numpy`` and
+``feature_params_from_numpy`` take the JAX param tree (nested dicts and
+lists of arrays) and fill the port's modules, whose parameter names are the
+tree's paths joined by dots.
+
 Tensors go to the card unless ``device="cpu"`` is passed; without CUDA a
 call that did not ask for the CPU raises (device.resolve_device).
 """
@@ -115,6 +120,75 @@ def problem_from_numpy(p, device=None) -> BAProblem:
         _edges(_field(p, "geo_edges"), dev),
         priors,
         reproj,
+    )
+
+
+def _flatten_params(tree, prefix=""):
+    """A JAX param tree (nested dicts / lists of arrays) -> {dotted name:
+    array}, the names of the port's state_dict."""
+    if isinstance(tree, Mapping):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for key, sub in items:
+        out.update(_flatten_params(sub, f"{prefix}.{key}" if prefix else str(key)))
+    return out
+
+
+def _load_params(net: torch.nn.Module, params, device):
+    dev = resolve_device(device)
+    state = {name: _tensor(arr, "cpu") for name, arr in _flatten_params(params).items()}
+    net.load_state_dict(state, strict=True)
+    return net.to(dev)
+
+
+def depth_params_from_numpy(params, cfg=None, device=None):
+    """A DepthNetwork carrying the JAX depth net's params (nested dicts /
+    lists of numpy arrays, or a torch state_dict by the same names)."""
+    from .models.depth_network import DepthNetConfig, DepthNetwork
+
+    return _load_params(DepthNetwork(cfg or DepthNetConfig()), params, device)
+
+
+def feature_params_from_numpy(params, cfg=None, device=None):
+    """A FeatureNetwork carrying the JAX feature net's params."""
+    from .models.feature_network import FeatureNetConfig, FeatureNetwork
+
+    return _load_params(FeatureNetwork(cfg or FeatureNetConfig()), params, device)
+
+
+def frame_from_numpy(fr, device=None):
+    """The port's FrameData from the JAX package's FrameData fields (the
+    per-frame tables included; the default-off mega tables are not
+    carried)."""
+    from .mapping.keyframe_store import FrameData
+
+    dev = resolve_device(device)
+    t = lambda name: _tensor(_field(fr, name), dev)  # noqa: E731
+    opt = lambda name: None if _opt_field(fr, name) is None else t(name)  # noqa: E731
+    return FrameData(
+        timestamp=float(_field(fr, "timestamp")),
+        bias_flat=t("bias_flat"),
+        jac_flat=t("jac_flat"),
+        feat_pyr=t("feat_pyr"),
+        grad_pyr=t("grad_pyr"),
+        feat_desc_flat=t("feat_desc_flat"),
+        src_feats=t("src_feats"),
+        loc1d=t("loc1d"),
+        homo=t("homo"),
+        avg_sq_bias=t("avg_sq_bias"),
+        pose=_se3(_field(fr, "pose"), dev),
+        code=t("code"),
+        scale=float(_field(fr, "scale")),
+        packed_fg=opt("packed_fg"),
+        packed_feat=opt("packed_feat"),
+        dense_fg=tuple(_tensor(d, dev) for d in (_opt_field(fr, "dense_fg") or ())),
+        dense_feat=tuple(_tensor(d, dev) for d in (_opt_field(fr, "dense_feat") or ())),
+        bias_at=opt("bias_at"),
+        jac_at=opt("jac_at"),
     )
 
 

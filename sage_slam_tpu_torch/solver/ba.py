@@ -8,8 +8,9 @@ runs the optimization.
 
 The photometric reduce of every linearization is ops/photo_reduce (the
 CUDA kernel when the problem lies on the card). Reprojection edges (off by
-default, MapperConfig.use_reprojection) are not ported yet: linearize and
-total_error raise NotImplementedError on a problem that carries any.
+default, MapperConfig.use_reprojection) enter as a third factor type.
+``compact_problem_keyframes`` gathers the window-incident keyframes of a
+full-capacity problem for the mapper's compact step.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from ..device import set_f32_precision
 from ..geometry.camera import CameraPyramid
 from ..geometry.se3 import SE3
 from ..ops import geometric, photometric, priors
+from ..ops import reprojection as rp_ops
 from ..ops.photo_reduce import photo_reduce
 from . import graph
 from .graph import Variables
@@ -59,17 +61,29 @@ class EdgeTable(NamedTuple):
 
 
 class ReprojEdgeTable(NamedTuple):
-    """Reprojection edges with their match sets (E edges x M matches).
-    Carried as data; the factor itself waits for the mapper slice."""
+    """Reprojection edges with their precomputed match sets (E edges x M
+    matches)."""
 
-    i0: torch.Tensor
-    i1: torch.Tensor
-    valid: torch.Tensor
-    loc1d_0: torch.Tensor
-    homo_0: torch.Tensor
-    matched_2d_1: torch.Tensor
-    match_valid: torch.Tensor
-    weight: torch.Tensor
+    i0: torch.Tensor  # [E]
+    i1: torch.Tensor  # [E]
+    valid: torch.Tensor  # [E]
+    loc1d_0: torch.Tensor  # [E, M]
+    homo_0: torch.Tensor  # [E, M, 3]
+    matched_2d_1: torch.Tensor  # [E, M, 2]
+    match_valid: torch.Tensor  # [E, M]
+    weight: torch.Tensor  # [E] inlier ratio * factor weight
+
+    @staticmethod
+    def empty(m: int, dtype=torch.float32, device=None) -> "ReprojEdgeTable":
+        z = torch.zeros((0,), dtype=torch.int64, device=device)
+        return ReprojEdgeTable(
+            z, z, torch.zeros((0,), dtype=dtype, device=device),
+            torch.zeros((0, m), dtype=torch.int64, device=device),
+            torch.zeros((0, m, 3), dtype=dtype, device=device),
+            torch.zeros((0, m, 2), dtype=dtype, device=device),
+            torch.zeros((0, m), dtype=dtype, device=device),
+            torch.zeros((0,), dtype=dtype, device=device),
+        )
 
 
 class PriorTable(NamedTuple):
@@ -112,6 +126,64 @@ def prepare_problem(problem: BAProblem, cam_pyr: CameraPyramid) -> BAProblem:
             dense_feat=dense_feat,
         )
     )
+
+
+def slice_problem_keyframes(problem: BAProblem, kb: int, cam_pyr: CameraPyramid) -> BAProblem:
+    """Restrict a full-capacity problem to its first ``kb`` keyframes
+    (views, no copies). Edge tables are untouched: every edge index must be
+    below kb."""
+    return _select_keyframes(problem, slice(0, kb), None)
+
+
+def compact_problem_keyframes(problem: BAProblem, ids: torch.Tensor,
+                              pad_valid: torch.Tensor, cam_pyr: CameraPyramid) -> BAProblem:
+    """Gather the window and prior rows of ``ids`` [kc] (distinct store
+    rows) into a compact problem, whose tables are copies.
+
+    The solve's dense system and per-iteration tables are then sized by
+    the window-incident keyframes, not by the store. Edge tables must
+    already be in compact indices; ``pad_valid`` [kc] zeroes the priors of
+    padding rows, so the compact total error differs from the full one by
+    a variable-independent constant."""
+    return _select_keyframes(problem, ids, pad_valid)
+
+
+def _select_keyframes(problem: BAProblem, sel, pad_valid) -> BAProblem:
+    w = problem.window
+    k = w.bias_flat.shape[0]
+
+    def cols(t):
+        if t is None:
+            return None
+        cw = t.shape[0]
+        return t.reshape(cw, k, -1)[:, sel].reshape(cw, -1)
+
+    window = w._replace(
+        loc1d=w.loc1d[sel],
+        homo=w.homo[sel],
+        bias_flat=w.bias_flat[sel],
+        jac_flat=w.jac_flat[sel],
+        feat_pyr=w.feat_pyr[:, sel],
+        grad_pyr=w.grad_pyr[:, :, sel],
+        src_feats=w.src_feats[sel],
+        avg_sq_bias=w.avg_sq_bias[sel],
+        packed_fg=cols(w.packed_fg),
+        packed_feat=cols(w.packed_feat),
+        bias_at=None if w.bias_at is None else w.bias_at[sel],
+        jac_at=None if w.jac_at is None else w.jac_at[sel],
+        dense_fg=tuple(d[sel] for d in w.dense_fg),
+        dense_feat=tuple(d[sel] for d in w.dense_feat),
+    )
+    pr = problem.priors
+    gate = (lambda x: x[sel]) if pad_valid is None else (lambda x: x[sel] * pad_valid)
+    priors = PriorTable(
+        code_valid=gate(pr.code_valid),
+        scale_valid=gate(pr.scale_valid),
+        scale_init=pr.scale_init[sel],
+        pose_valid=gate(pr.pose_valid),
+        pose_target=SE3(pr.pose_target.rot[sel], pr.pose_target.trans[sel]),
+    )
+    return problem._replace(window=window, priors=priors)
 
 
 def _photo_inputs(window: WindowData, e: EdgeTable):
@@ -175,12 +247,24 @@ def _edge_pose(variables: Variables, idx: torch.Tensor) -> SE3:
     return SE3(variables.pose.rot[idx], variables.pose.trans[idx])
 
 
-def _check(variables: Variables, problem: BAProblem, cfg) -> None:
+def _reproj_inputs(variables: Variables, problem: BAProblem, cam_pyr, cfg):
+    """Per-edge arguments of the reprojection factor, or None without edges."""
     re = problem.reproj_edges
-    if re is not None and re.i0.shape[0] > 0:
-        raise NotImplementedError(
-            "reprojection edges are not ported yet (use_reprojection=False)"
-        )
+    if re is None or re.i0.shape[0] == 0:
+        return None
+    w = problem.window
+    matches = rp_ops.ReprojMatchSet(re.loc1d_0, re.homo_0, re.matched_2d_1, re.match_valid)
+    # loss_param = reproj_loss_param_factor * width^2 (mapper.cpp:357)
+    loss_param = cfg.reproj_loss_param_factor * float(cam_pyr[0].width) ** 2
+    return (
+        _edge_pose(variables, re.i0), _edge_pose(variables, re.i1),
+        variables.code[re.i0], variables.scale[re.i0],
+        w.bias_flat[re.i0], w.jac_flat[re.i0], matches, cam_pyr[0], re.weight,
+        loss_param, cfg.dpt_eps,
+    )
+
+
+def _check(variables: Variables, problem: BAProblem, cfg) -> None:
     name = getattr(cfg, "photo_reduce", "xla")
     if name not in PHOTO_REDUCE_NAMES:
         raise ValueError(f"photo_reduce={name!r}; expected one of {PHOTO_REDUCE_NAMES}")
@@ -270,6 +354,25 @@ def linearize(
         h, b = graph.scatter_hessian(h, b, gidx, ata, atb, ge.valid)
         total_err = total_err + torch.sum(err * ge.valid)
 
+    # ---- reprojection edges: vars (p0, p1, c0, s0), dim 13+CS ----
+    rp_args = _reproj_inputs(variables, problem, cam_pyr, cfg)
+    if rp_args is not None:
+        re = problem.reproj_edges
+        ata, atb, err, _ = rp_ops.reprojection_jac_error(*rp_args)
+        if psd:
+            ata = graph.psd_correct(ata)
+        gidx = torch.cat(
+            [
+                graph.slot_indices(re.i0, bd, sel_pose),
+                graph.slot_indices(re.i1, bd, sel_pose),
+                graph.slot_indices(re.i0, bd, sel_code),
+                graph.slot_indices(re.i0, bd, sel_scale),
+            ],
+            dim=-1,
+        )
+        h, b = graph.scatter_hessian(h, b, gidx, ata, atb, re.valid)
+        total_err = total_err + torch.sum(err * re.valid)
+
     # ---- priors ----
     pr = problem.priors
     kf_range = torch.arange(k, device=dev)
@@ -329,6 +432,11 @@ def total_error(variables: Variables, problem: BAProblem, cam_pyr, cfg):
             loss_param, cfg.dpt_eps,
         )
         total = total + torch.sum(err * ge.valid)
+
+    rp_args = _reproj_inputs(variables, problem, cam_pyr, cfg)
+    if rp_args is not None:
+        err, _ = rp_ops.reprojection_error(*rp_args)
+        total = total + torch.sum(err * problem.reproj_edges.valid)
 
     pr = problem.priors
     _, _, err_c = priors.code_prior(

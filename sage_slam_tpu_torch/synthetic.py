@@ -9,9 +9,14 @@ numpy draws are made in the same order as there, so the inputs are the
 same; the pyramid is computed by the port.
 
 Both build on the card unless ``device="cpu"`` is passed.
+
+``mapper_scene`` makes a video for the mapper (numpy arrays: images, a
+smooth trajectory and a circular video mask).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -100,6 +105,61 @@ def bench_problem(device=None, seed=0, k=8, h=64, w=80, cs=16, fs=16, levels=4,
         torch.ones(k, device=dev),
     )
     return variables, problem, pyr
+
+
+class MapperScene(NamedTuple):
+    """A synthetic video for the mapper, as numpy arrays."""
+
+    images: np.ndarray  # [F, 3, H, W] float32 in [0, 1]
+    rot: np.ndarray  # [F, 3, 3] world-from-camera rotations
+    trans: np.ndarray  # [F, 3] world-from-camera translations
+    mask_in: np.ndarray  # [H, W] circular video mask, input resolution
+    mask_out: np.ndarray  # [H/2, W/2] the same mask at the networks' output
+    camera: PinholeCamera  # output-resolution intrinsics
+
+
+# radius of mapper_scene's circular mask over the image width
+MASK_RADIUS = 0.46
+
+
+def mapper_scene(num_frames: int = 16, seed: int = 0, height: int = 128,
+                 width: int = 160) -> MapperScene:
+    """A camera sliding over a textured fronto-parallel plane at depth 1 on a
+    smooth path (a quarter circle of radius 0.05 with a forward drift of
+    0.002 per frame), seen through a
+    circular endoscope-like mask of radius ``MASK_RADIUS * width`` that the
+    image's top and bottom clip. The texture is a sum of random sinusoids per
+    channel, so each frame is the texture shifted by the camera's motion
+    with no resampling. Everything comes from ``numpy.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    n_waves = 12
+    freq = rng.uniform(0.04, 0.35, size=(3, n_waves, 2)) * rng.choice([-1, 1], size=(3, n_waves, 2))
+    phase = rng.uniform(0, 2 * np.pi, size=(3, n_waves))
+    amp = rng.uniform(0.2, 1.0, size=(3, n_waves))
+    amp /= amp.sum(axis=1, keepdims=True) * 2.2
+    f_in = width * 1.1
+    angles = np.linspace(0.0, np.pi / 2, num_frames)
+    trans = np.stack(
+        [0.05 * np.sin(angles), 0.05 * (1 - np.cos(angles)), 0.002 * np.arange(num_frames)], axis=-1
+    ).astype(np.float32)
+    rot = np.broadcast_to(np.eye(3, dtype=np.float32), (num_frames, 3, 3)).copy()
+    yy, xx = np.mgrid[:height, :width].astype(np.float64)
+    images = np.empty((num_frames, 3, height, width), np.float32)
+    for f in range(num_frames):
+        # a plane at depth 1 - t_z: the camera's motion shifts the image by
+        # -f * t / depth pixels
+        depth = 1.0 - trans[f, 2]
+        sx = (xx - width / 2) * depth + f_in * trans[f, 0]
+        sy = (yy - height / 2) * depth + f_in * trans[f, 1]
+        arg = freq[..., 0, None, None] * sx + freq[..., 1, None, None] * sy + phase[..., None, None]
+        images[f] = 0.5 + np.sum(amp[..., None, None] * np.sin(arg), axis=1)
+    mask_in = (((xx - (width - 1) / 2) ** 2 + (yy - (height - 1) / 2) ** 2)
+               <= (MASK_RADIUS * width) ** 2).astype(np.float32)
+    h, w = height // 2, width // 2
+    camera = PinholeCamera(fx=f_in / 2, fy=f_in / 2, cx=w / 2 - 0.5, cy=h / 2 - 0.5,
+                           width=w, height=h)
+    return MapperScene(np.clip(images, 0.0, 1.0), rot, trans, mask_in, mask_in[::2, ::2].copy(),
+                       camera)
 
 
 def graft_problem(device=None, seed=0, k=4, h=32, w=40, cs=16, fs=16, levels=4, n=512):

@@ -1,7 +1,7 @@
 """Port parity of the whole slice: window-BA linearize, total_error and
 run_ba against the JAX package on the same inputs (CPU), plus the port's
 own contracts (LM Cholesky-failure handling, config and device checks,
-reprojection edges refused, the synthetic problem builders)."""
+the schur solver refused, the synthetic problems)."""
 
 import dataclasses
 
@@ -147,13 +147,16 @@ def test_config_and_entry_point_contracts():
     bad = dataclasses.make_dataclass("Cfg", [("photo_reduce", str, "cuda")])()
     with pytest.raises(ValueError):
         tba.linearize(tv, tp, tpyr, bad)
-    # reprojection edges are carried but not ported: refuse, never ignore
+    # reprojection edges are a factor type of their own now, never ignored
+    # (test_torch_reprojection.py holds them against JAX)
     pr = add_reproj_edges(p, pyr)
     tpr = convert.problem_from_numpy(jax.tree.map(np.asarray, pr), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tba.linearize(tv, tpr, tpyr, MapperConfig())
-    with pytest.raises(NotImplementedError):
-        tba.total_error(tv, tpr, tpyr, MapperConfig())
+    _, _, e_rp = tba.linearize(tv, tpr, tpyr, MapperConfig())
+    _, _, e_no = tba.linearize(tv, tp, tpyr, MapperConfig())
+    assert float(e_rp) > float(e_no)
+    assert float(tba.total_error(tv, tpr, tpyr, MapperConfig())) > float(
+        tba.total_error(tv, tp, tpyr, MapperConfig())
+    )
     with pytest.raises(NotImplementedError):
         tba.run_ba(tv, tp, tpyr, MapperConfig(solver="schur"), torch.ones(3), max_iters=1)
 

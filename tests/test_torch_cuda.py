@@ -1,4 +1,5 @@
-"""The CUDA photometric reduce against its plain version, on the card.
+"""The CUDA photometric reduce against its plain version, and the mapper
+slice on the card against the same calls on the CPU.
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside the
 fixture, never at import). Run on a machine with an H100 and nvcc:
@@ -115,3 +116,68 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
     ins = [x.to(cuda) for x in _inputs(2, 4, 16, 64, 29, soft=False)]
     with pytest.raises(ValueError):  # non-contiguous
         tred.photo_reduce(*ins[:3], ins[3].transpose(1, 2).contiguous().transpose(1, 2), ins[4], WEIGHTS, ratios)
+
+
+def _published_mapper(dev, max_keyframes=16, n_frames=6):
+    """The mapper at the published widths (SlamConfig(), DepthNetConfig(),
+    FeatureNetConfig()) with random weights from a seeded generator, on
+    synthetic.mapper_scene; a smaller store than chip_smoke.py's."""
+    from sage_slam_tpu_torch import synthetic
+    from sage_slam_tpu_torch.config import SlamConfig
+    from sage_slam_tpu_torch.geometry.camera import CameraPyramid
+    from sage_slam_tpu_torch.mapping.mapper import Mapper
+    from sage_slam_tpu_torch.models import depth_network, feature_network
+
+    cfg = SlamConfig(max_keyframes=max_keyframes)
+    scene = synthetic.mapper_scene(n_frames, seed=1)
+    gen = torch.Generator().manual_seed(1)
+    dnet = depth_network.init_network(gen, depth_network.DepthNetConfig())
+    fnet = feature_network.init_network(gen, feature_network.FeatureNetConfig())
+    mapper = Mapper(cfg, CameraPyramid.build(scene.camera, cfg.pyramid_levels), scene.mask_out,
+                    dnet, fnet, video_mask_in=scene.mask_in, device=dev)
+    return mapper, scene
+
+
+def test_build_frame_card_matches_cpu(cuda):
+    """Same image and samples through the networks, pyramid and tables on
+    the card and on the CPU: within 1e-3 of each tensor's max |value|
+    (cuDNN's float32 convolutions against the CPU's); TF32 stays off."""
+    mapper, scene = _published_mapper(cuda)
+    cpu = mapper.clone("cpu")
+    loc = mapper.sample_locations(0.5)
+    fr_g = mapper.build_frame(0.5, scene.images[2], loc1d=loc)
+    fr_c = cpu.build_frame(0.5, scene.images[2], loc1d=loc.cpu())
+    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+    for name in ("bias_flat", "jac_flat", "feat_pyr", "grad_pyr", "feat_desc_flat", "src_feats",
+                 "packed_fg", "packed_feat", "bias_at", "jac_at"):
+        g, c = getattr(fr_g, name).cpu().double(), getattr(fr_c, name).double()
+        assert float((g - c).abs().max()) <= 1e-3 * float(c.abs().max()), name
+
+
+def test_mapping_step_card_matches_cpu(cuda):
+    """Five keyframes with back connections to the previous 3; the last
+    mapping_step on the card and on the CPU from the same state: equal
+    iterations and converged flag, variables within 1e-4; the kernel is
+    launched once per LM iteration on the card."""
+    from sage_slam_tpu_torch.geometry.se3 import SE3
+
+    mapper, scene = _published_mapper(cuda)
+    mapper.init_one_frame(0.0, scene.images[0])
+    for f in range(1, 5):
+        pose = SE3(torch.from_numpy(scene.rot[f]).to(cuda), torch.from_numpy(scene.trans[f]).to(cuda))
+        n = mapper.store.num_active
+        mapper.enqueue_keyframe(mapper.build_frame(0.1 * f, scene.images[f], pose=pose),
+                                list(range(n - 1, max(-1, n - 4), -1)))
+        cpu = mapper.clone("cpu") if f == 4 else None
+        before = tred.photo_reduce.launches
+        err_g = mapper.mapping_step()
+        torch.cuda.synchronize()
+        assert tred.photo_reduce.launches - before == mapper.last_step_iters > 0
+    err_c = cpu.mapping_step()
+    assert (cpu.last_step_iters, cpu.last_step_converged) == (
+        mapper.last_step_iters, mapper.last_step_converged)
+    np.testing.assert_allclose(err_g, err_c, rtol=1e-4)
+    vg, vc = mapper.store.variables, cpu.store.variables
+    for a, b in ((vg.pose.trans, vc.pose.trans), (vg.pose.rot, vc.pose.rot), (vg.code, vc.code)):
+        np.testing.assert_allclose(a[:5].cpu().numpy(), b[:5].numpy(), atol=1e-4)
+    np.testing.assert_allclose(vg.scale[:5].cpu().numpy(), vc.scale[:5].numpy(), rtol=1e-4)

@@ -31,6 +31,21 @@ def test_port_module_imports_no_jax(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+SLICE_MODULES = [
+    "models/partial_unet.py", "models/depth_network.py", "models/feature_network.py",
+    "ops/depth.py", "ops/residuals.py", "ops/robust_loss.py", "ops/reprojection.py",
+    "mapping/keyframe_store.py", "mapping/mapper.py", "solver/ba.py",
+    "tracker/matcher.py", "tracker/robust.py", "convert.py", "synthetic.py",
+]
+
+
+@pytest.mark.parametrize("rel", SLICE_MODULES)
+def test_mapper_slice_module_is_guarded(rel):
+    """Every module of the mapper slice exists and is among the files the
+    guard above walks."""
+    assert ROOT / "sage_slam_tpu_torch" / rel in PORT_FILES
+
+
 def test_guard_compares_roots_exactly(tmp_path):
     src = tmp_path / "m.py"
     src.write_text(
