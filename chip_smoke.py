@@ -43,7 +43,26 @@ Phases, each of which exits non-zero on failure:
    library call. Prints build_frame and steady-state mapping_step
    times, the photometric edge count E the kernel saw per step and the
    store's bytes;
-7. a JSON line listing every kernel, then the card line, then the last
+7. slam path: the SLAM frontend at the same widths (SlamConfig()
+   defaults: tracker 40 LM iterations coarse-to-fine, 256 keypoints,
+   reprojection terms, soft gate; window 8; the same random networks) on
+   synthetic.slam_scene's 24 frames: bootstrap on frame 0, process_frame on
+   each later frame with a mapping_step after each new keyframe (every 4th
+   frame is made a keyframe through SlamSystem.force_keyframe, the others
+   follow their ratios), then
+   refine_mapping(2) and finalized_trajectory (profile_slam.drive). Prints
+   each frame's decision, LM iterations and ratios, ms per tracked frame
+   on the host clock and from CUDA events (non-keyframe and keyframe
+   frames apart) with its layer split, ms per mapping_step, the keyframe
+   and lost-frame counts and the peak device memory. Fails unless K1's
+   launches over this path equal the LM iterations of its mapping_step and
+   refine_mapping calls, every pose, depth map and variable is finite, and
+   frame 13's process_frame on the card agrees with the same call on a CPU
+   clone of the system from the same state (SlamSystem.clone("cpu"), the
+   same prebuilt frame): equal LM iterations and keyframe decision, pose
+   and ratios within 1e-4. K1 is held against its plain version and timed
+   at this path's window shape;
+8. a JSON line listing every kernel, then the card line, then the last
    line ``{"ok": true, "device": {...}}``.
 
 Imports neither JAX nor the JAX package.
@@ -53,6 +72,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import os
 import subprocess
@@ -244,6 +264,51 @@ def rel_diff(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
 
 
+def reduce_at_path_shape(mapper, cfg, pyr, card: str, peaks, path: str) -> dict:
+    """K1 on the photometric inputs of the window of a path's final state
+    (the edges incident to its last window_size keyframes), against its
+    plain version, and timed there beside the plain version and the library
+    call. Launches made here are not counted."""
+    from sage_slam_tpu_torch.geometry.se3 import SE3
+    from sage_slam_tpu_torch.ops import photo_reduce as pr
+    from sage_slam_tpu_torch.ops import photometric
+    from sage_slam_tpu_torch.solver import ba
+
+    n = mapper.store.num_active
+    lo = max(0, n - cfg.mapper.window_size)
+    problem = ba.prepare_problem(
+        ba.slice_problem_keyframes(mapper.build_problem(window_lo=lo), n, pyr), pyr)
+    v = mapper.store.variables
+    pe = problem.photo_edges
+    kf0, fr1, shared = ba._photo_inputs(problem.window, pe)
+    prep = photometric.photo_prep(
+        SE3(v.pose.rot[pe.i0], v.pose.trans[pe.i0]), SE3(v.pose.rot[pe.i1], v.pose.trans[pe.i1]),
+        v.code[pe.i0], v.scale[pe.i0], kf0, fr1, shared, pyr, cfg.mapper.dpt_eps,
+        soft=cfg.mapper.soft_inlier_gate,
+    )
+    weights, ratios = tuple(cfg.mapper.photo_factor_weights), photometric.level_ratios(pyr)
+    saved = pr.photo_reduce.launches
+    out = pr.photo_reduce(*prep, weights, ratios)
+    ref = pr.photo_reduce_ref(*prep, weights, ratios)
+    abs_err, rel_err = compare_reduce(out, ref, False, f"{path} window prep inputs")
+    for _ in range(3):
+        pr.photo_reduce(*prep, weights, ratios)
+    t_kernel = device_ms(lambda: pr.photo_reduce(*prep, weights, ratios), 50, "photo_reduce")
+    t_plain = device_ms(lambda: pr.photo_reduce_ref(*prep, weights, ratios), 20)
+    run_library = library_call(prep)
+    run_library()
+    t_library = device_ms(run_library, 50)
+    pr.photo_reduce.launches = saved
+    bound_ms, bound_by, in_b, out_b, _ = reduce_bound(prep, *peaks)
+    say(f"kernel vs plain: photo_reduce on the {path} path's window prep inputs "
+        f"{tuple(prep[0].shape)}: ok; [{card}] device {t_kernel:.5f} ms, plain {t_plain:.4f} ms, "
+        f"library bmm of the final contraction {t_library:.4f} ms, bound {bound_ms:.5f} ms by "
+        f"{bound_by} ({(in_b + out_b) / 1e6:.1f} MB) = {bound_ms / t_kernel:.1%} of bound")
+    return dict(max_abs_err=abs_err, max_rel_err=rel_err,
+                shape=dict(E=int(prep[0].shape[0]), ms=t_kernel, plain_ms=t_plain,
+                           bound_ms=bound_ms, bound_by=bound_by, library_ms=t_library))
+
+
 def mapper_path(dev, card: str, peaks) -> dict:
     """Phase 6: the mapper at the published widths (see the module note).
     Returns what the kernels line and the summary need."""
@@ -254,7 +319,6 @@ def mapper_path(dev, card: str, peaks) -> dict:
     from sage_slam_tpu_torch.mapping.mapper import Mapper
     from sage_slam_tpu_torch.models import depth_network, feature_network
     from sage_slam_tpu_torch.ops import photo_reduce as pr
-    from sage_slam_tpu_torch.ops import photometric
     from sage_slam_tpu_torch.solver import ba
 
     cfg = SlamConfig()
@@ -375,35 +439,7 @@ def mapper_path(dev, card: str, peaks) -> dict:
         + ", ".join(f"{k} {v:.3g}" for k, v in frame_diff.items()) + ": ok")
 
     # the kernel at this path's steady-state shape, against its plain version
-    lo = n - cfg.mapper.window_size
-    problem = ba.prepare_problem(
-        ba.slice_problem_keyframes(mapper.build_problem(window_lo=lo), n, pyr), pyr)
-    v = mapper.store.variables
-    pe = problem.photo_edges
-    kf0, fr1, shared = ba._photo_inputs(problem.window, pe)
-    prep = photometric.photo_prep(
-        SE3(v.pose.rot[pe.i0], v.pose.trans[pe.i0]), SE3(v.pose.rot[pe.i1], v.pose.trans[pe.i1]),
-        v.code[pe.i0], v.scale[pe.i0], kf0, fr1, shared, pyr, cfg.mapper.dpt_eps,
-        soft=cfg.mapper.soft_inlier_gate,
-    )
-    weights, ratios = tuple(cfg.mapper.photo_factor_weights), photometric.level_ratios(pyr)
-    saved = pr.photo_reduce.launches
-    out = pr.photo_reduce(*prep, weights, ratios)
-    ref = pr.photo_reduce_ref(*prep, weights, ratios)
-    abs_err, rel_err = compare_reduce(out, ref, False, "mapper steady-state prep inputs")
-    for _ in range(3):
-        pr.photo_reduce(*prep, weights, ratios)
-    t_kernel = device_ms(lambda: pr.photo_reduce(*prep, weights, ratios), 50, "photo_reduce")
-    t_plain = device_ms(lambda: pr.photo_reduce_ref(*prep, weights, ratios), 20)
-    run_library = library_call(prep)
-    run_library()
-    t_library = device_ms(run_library, 50)
-    pr.photo_reduce.launches = saved
-    bound_ms, bound_by, in_b, out_b, _ = reduce_bound(prep, *peaks)
-    say(f"kernel vs plain: photo_reduce on the mapper's steady-state prep inputs "
-        f"{tuple(prep[0].shape)}: ok; [{card}] device {t_kernel:.5f} ms, plain {t_plain:.4f} ms, "
-        f"library bmm of the final contraction {t_library:.4f} ms, bound {bound_ms:.5f} ms by "
-        f"{bound_by} ({(in_b + out_b) / 1e6:.1f} MB) = {bound_ms / t_kernel:.1%} of bound")
+    k1 = reduce_at_path_shape(mapper, cfg, pyr, card, peaks, "mapper")
 
     # times after warm-up: build_frame (and its networks alone), steady steps
     def events_and_host(fn, reps):
@@ -435,9 +471,154 @@ def mapper_path(dev, card: str, peaks) -> dict:
         f"{[st['iters'] for st in steady]}")
     say(f"mapper path [{card}]: keyframe store {store_bytes} bytes ({store_bytes / 2**30:.3f} GiB) "
         f"at capacity {cfg.max_keyframes}; peak device memory {torch.cuda.max_memory_allocated()} bytes")
-    return dict(launches=launches, max_abs_err=abs_err, max_rel_err=rel_err,
-                shape=dict(E=int(prep[0].shape[0]), ms=t_kernel, plain_ms=t_plain,
-                           bound_ms=bound_ms, bound_by=bound_by, library_ms=t_library))
+    return dict(launches=launches, **k1)
+
+
+def matcher_flips(card_sys, cpu_sys, kf: int, fr_card, fr_cpu):
+    """The descriptor matching of a frame against keyframe kf on the card
+    and on the CPU, from the same state -> (the number of keypoints whose
+    match, cycle check or registration inlier differs; the largest float64
+    gap, over the size |q|^2 + |p|^2 of the distance's terms, between the
+    two nearest candidates of a query whose answer differs: the forward
+    query where the match differs, else the backward one where the cycle
+    check differs). The matcher takes argmin(|q|^2 + |p|^2 - 2 q.p) in
+    float32, so a gap near 1e-7 is a tie the two devices' sums may break
+    either way; an inlier that differs under an equal match follows from
+    the registration seeing other matches. With no differing match the gap
+    is infinite: nothing explains the difference."""
+    mg_g = card_sys._match_geo(kf, fr_card)
+    mg_c = cpu_sys._match_geo(kf, fr_cpu)
+    desc0 = cpu_sys.store.row("feat_desc", kf).double()
+    desc1 = fr_cpu.feat_desc_flat.double()
+
+    def gap(query, table):
+        d = torch.sum((table - query) ** 2, dim=-1)
+        two = torch.topk(d, 2, largest=False)
+        size = torch.sum(query**2) + torch.sum(table[two.indices] ** 2, dim=-1).max()
+        return float((two.values[1] - two.values[0]) / size)
+
+    m_g, m_c = mg_g.matches, mg_c.matches
+    match = m_g.loc1d_1.cpu() != m_c.loc1d_1
+    cycle = (m_g.valid.cpu() != m_c.valid) & ~match
+    inlier = mg_g.inliers.cpu() != mg_c.inliers
+    gaps = [gap(desc0[m_c.loc1d_0[k]], desc1) for k in match.nonzero()[:, 0].tolist()]
+    gaps += [gap(desc1[m_c.loc1d_1[k]], desc0) for k in cycle.nonzero()[:, 0].tolist()]
+    return int((match | cycle | inlier).sum()), max(gaps, default=float("inf"))
+
+
+def slam_path(dev, card: str, peaks) -> dict:
+    """Phase 7: the SLAM frontend at the published widths (see the module
+    note). Returns what the kernels line needs."""
+    from sage_slam_tpu_torch import convert, synthetic
+    from sage_slam_tpu_torch.ops import photo_reduce as pr
+    from sage_slam_tpu_torch.profile_slam import build_system, drive, summary_lines
+
+    # every 4th frame is made a keyframe (profile_slam.KEYFRAME_EVERY);
+    # frame 13 is held against the CPU
+    n_frames, check_frame = synthetic.SLAM_FRAMES, 13
+    system, scene, cfg = build_system(n_frames, device=dev)
+    tcfg = cfg.tracker
+    images = torch.from_numpy(scene.images).to(dev)
+    timestamps = [0.1 * f for f in range(n_frames)]
+    say(f"slam path: {n_frames} frames {tuple(scene.images.shape[2:])} -> {tuple(scene.mask_out.shape)}, "
+        f"N={system.mapper.num_samples}, tracker {tcfg.max_num_iters} LM iterations (coarse-to-fine "
+        f"{tcfg.coarse_to_fine}, soft gate {tcfg.soft_inlier_gate}), {tcfg.desc_num_keypoints} "
+        f"keypoints, reprojection {tcfg.use_reprojection}; mapper window {cfg.mapper.window_size}, "
+        f"store capacity {cfg.max_keyframes}")
+
+    held = {}
+
+    def frame_hook(f):
+        """Before the check frame: build it, and keep clones of the system
+        on the CPU and on the card, with copies of the frame, for the same
+        call on the CPU and the matcher's comparison."""
+        if f != check_frame:
+            return None
+        fr = system.mapper.build_frame(timestamps[f], images[f])
+        held.update(cpu=system.clone("cpu"), frame=convert.to_device(fr, "cpu"),
+                    card=system.clone(dev), card_frame=dataclasses.replace(fr))
+        return fr
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pr.photo_reduce.launches = 0
+    records = drive(system, images, timestamps, frame_hook)
+    t0 = time.perf_counter()
+    refine_err = system.refine_mapping(2)
+    refine_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    launches = pr.photo_reduce.launches
+    peak = torch.cuda.max_memory_allocated()
+    map_iters = [r["map_iters"] for r in records if "map_iters" in r]
+    iters_total = sum(map_iters) + system.refine_iterations
+
+    for r in records:
+        res = r["result"]
+        say(f"  frame {r['frame']:2d}: keyframe {int(res.new_keyframe)} (forced {int(r['forced'])}) "
+            f"lost {int(res.tracking_lost)} "
+            f"LM {r['iters']:2d}, area {res.area_ratio:.4f} inlier {res.inlier_ratio:.4f} "
+            f"motion {res.average_motion:.5f} desc {res.desc_inlier_ratio:.4f}, {r['host_ms']:.2f} ms host"
+            + (f"; mapping_step {r['map_iters']} iterations {r['map_ms']:.2f} ms" if "map_ms" in r else ""))
+    for line in summary_lines(records, card):
+        say(line)
+    say(f"time [{card}] refine_mapping(2): {refine_ms:.3f} ms host clock, {system.refine_iterations} LM "
+        f"iterations, error {refine_err:.6g}; peak device memory {peak} bytes")
+    say(f"slam path: photo_reduce launches {launches}, mapping LM iterations {iters_total} "
+        f"(mapping_step {map_iters}, refine_mapping {system.refine_iterations})")
+    if launches == 0 or launches != iters_total:
+        fail(f"slam path: photo_reduce launched {launches} times for {iters_total} mapping LM iterations")
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        fail("slam path: TF32 is allowed after the networks ran")
+
+    n = system.store.num_active
+    v = system.store.variables
+    tensors = [*v.pose, v.code, v.scale]
+    tensors += [t for _, p in system.trajectory + system.finalized_trajectory() for t in p]
+    tensors += [system.store.depth_map(i) for i in range(n)]
+    if not all(bool(torch.isfinite(t).all()) for t in tensors):
+        fail("slam path: a pose, depth map or variable is not finite")
+    if len(system.trajectory) != n_frames:
+        fail(f"slam path: {len(system.trajectory)} trajectory poses for {n_frames} frames")
+
+    # the check frame on the CPU clone, from the state the card's call started from
+    cpu = held["cpu"]
+    res_c = cpu.process_frame(timestamps[check_frame], frame=held["frame"])
+    rec = records[check_frame - 1]
+    res_g = rec["result"]
+    if (cpu.last_track_ref, cpu.last_track_iters, res_c.new_keyframe, res_c.tracking_lost) != (
+            rec["ref"], rec["iters"], res_g.new_keyframe, res_g.tracking_lost):
+        fail(f"process_frame card vs CPU: reference keyframe / LM iterations / keyframe / lost "
+             f"{rec['ref']} / {rec['iters']} / {res_g.new_keyframe} / {res_g.tracking_lost} vs "
+             f"{cpu.last_track_ref} / {cpu.last_track_iters} / {res_c.new_keyframe} / "
+             f"{res_c.tracking_lost}")
+    diffs = {
+        "rot": float((res_g.pose.rot.cpu() - res_c.pose.rot).abs().max()),
+        "trans": float((res_g.pose.trans.cpu() - res_c.pose.trans).abs().max()),
+        **{name: abs(getattr(res_g, name) - getattr(res_c, name))
+           for name in ("area_ratio", "inlier_ratio", "average_motion", "desc_inlier_ratio")},
+    }
+    # float32 roundoff of the tracker's sums on the card: pose and ratios
+    # within 1e-4 absolute. The descriptor ratio counts matches: it may
+    # differ only where a nearest-neighbour match is a float32 tie
+    ties = ""
+    if diffs["desc_inlier_ratio"] > 1e-4:
+        flips, gap = matcher_flips(held["card"], cpu, rec["ref"], held["card_frame"],
+                                   convert.to_device(held["card_frame"], "cpu"))
+        if not flips or gap > 1e-5:
+            fail(f"process_frame card vs CPU (frame {check_frame}): the descriptor ratio differs by "
+                 f"{diffs['desc_inlier_ratio']}; {flips} keypoints differ, largest tie gap {gap}")
+        ties = (f" (descriptor ratio {res_g.desc_inlier_ratio:.6f} vs {res_c.desc_inlier_ratio:.6f}: "
+                f"{flips} keypoint(s) matched at a float32 tie of the nearest-neighbour distance, "
+                f"largest gap {gap:.3g} of the distance's terms)")
+        diffs.pop("desc_inlier_ratio")
+    if max(diffs.values()) > 1e-4:
+        fail(f"process_frame card vs CPU (frame {check_frame}): {diffs}")
+    say(f"process_frame card vs CPU (frame {check_frame}, {rec['iters']} LM iterations, keyframe "
+        f"{res_g.new_keyframe}): max |d| " + ", ".join(f"{k} {x:.3g}" for k, x in diffs.items())
+        + ties + ": ok")
+
+    k1 = reduce_at_path_shape(system.mapper, cfg, system.cam_pyr, card, peaks, "slam")
+    return dict(launches=launches, **k1)
 
 
 def main() -> None:
@@ -671,14 +852,19 @@ def main() -> None:
     mapped = mapper_path(dev, card, (peak_bw, peak_flops))
     max_err, max_rel = max(max_err, mapped["max_abs_err"]), max(max_rel, mapped["max_rel_err"])
 
-    # ---- 7. result ----
+    # ---- 7. slam path ----
+    slammed = slam_path(dev, card, (peak_bw, peak_flops))
+    max_err, max_rel = max(max_err, slammed["max_abs_err"]), max(max_rel, slammed["max_rel_err"])
+
+    # ---- 8. result ----
     kernels = [{
         "name": "photo_reduce",
         "route": "cuda",
         "source": "sage_slam_tpu_torch/ops/csrc/photo_reduce.cu",
         "replaces": "sage_slam_tpu/ops/pallas_kernels.py:118",
-        "launches": launches["photo_reduce"] + mapped["launches"],
-        "launches_by_path": {"run_ba": launches["photo_reduce"], "mapper": mapped["launches"]},
+        "launches": launches["photo_reduce"] + mapped["launches"] + slammed["launches"],
+        "launches_by_path": {"run_ba": launches["photo_reduce"], "mapper": mapped["launches"],
+                             "slam": slammed["launches"]},
         "max_abs_err": max_err,
         "max_rel_err": max_rel,
         "matched": True,
@@ -690,6 +876,7 @@ def main() -> None:
         "library_call": "torch.bmm of the final contraction kx@kgx^T + ky@kgy^T only",
         "events_ms": ev_kernel,
         "mapper_shape": mapped["shape"],
+        "slam_shape": slammed["shape"],
     }]
     if run_old:
         kernels[0]["earlier_ms"] = old_ms

@@ -12,8 +12,12 @@ Package layout (the ported slice):
   geometry/   SE3, pinhole cameras, bilinear gather primitives
   ops/        pyramid, photometric / geometric / prior factors, the reduce
   solver/     PSD correction, Hessian assembly, LM loop, window BA
+  models/     the depth and feature networks
+  mapping/    keyframe store and mapper (frame build, windowed BA step)
+  tracker/    descriptor matching, robust registration, the LM tracker
+  frontend/   SlamSystem: tracking, keyframe decisions, refinement
   convert.py  numpy fields of the JAX package's structures -> torch
-  synthetic.py  the synthetic BA problems of bench.py / __graft_entry__.py
+  synthetic.py  synthetic BA problems and videos
   _build.py   nvcc build of the CUDA sources at first use
 
 It imports neither ``jax`` nor ``sage_slam_tpu``.

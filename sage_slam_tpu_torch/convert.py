@@ -19,6 +19,7 @@ call that did not ask for the CPU raises (device.resolve_device).
 
 from __future__ import annotations
 
+import dataclasses
 from collections.abc import Mapping
 
 import numpy as np
@@ -193,9 +194,14 @@ def frame_from_numpy(fr, device=None):
 
 
 def to_device(tree, device):
-    """Copy every tensor of a (nested) NamedTuple / tuple to ``device``."""
+    """Copy every tensor of a (nested) NamedTuple / tuple / dataclass (a
+    FrameData) to ``device``."""
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: to_device(getattr(tree, f.name), device) for f in dataclasses.fields(tree)
+        })
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return type(tree)(*(to_device(x, device) for x in tree))
     if isinstance(tree, tuple):

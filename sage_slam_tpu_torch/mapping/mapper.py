@@ -126,6 +126,9 @@ class Mapper:
         # injection point: ``timestamp -> depth [h, w]`` replaces the depth
         # network's output (bias = oracle, tiny uniform code basis)
         self.depth_oracle = None
+        # injection point: ``timestamp -> pixel ids [N]`` replaces the seeded
+        # draw of a frame's photometric samples (build_frame without loc1d=)
+        self.location_source = None
         # telemetry of the last mapping_step
         self.last_step_iters = 0
         self.last_step_converged = False
@@ -167,6 +170,7 @@ class Mapper:
                 {k: copy_to(v) if isinstance(v, torch.Tensor) else v for k, v in ed.items()}
                 for ed in self.reproj_edges
             ]
+            out.location_source = self.location_source
             for name in ("_init_scale_target", "_pose_anchor"):
                 if hasattr(self, name):
                     setattr(out, name, copy.deepcopy(getattr(self, name)))
@@ -176,8 +180,11 @@ class Mapper:
     # frame construction
 
     def sample_locations(self, timestamp: float) -> torch.Tensor:
-        """The frame's photometric pixel ids: a seeded permutation of the
-        mask's valid pixels, cut to num_samples."""
+        """The frame's photometric pixel ids: ``location_source(timestamp)``
+        where set, else a seeded permutation of the mask's valid pixels, cut
+        to num_samples."""
+        if self.location_source is not None:
+            return self._ids(self.location_source(timestamp))
         gen = torch.Generator().manual_seed(sample_seed(timestamp))
         perm = torch.randperm(self.valid_loc1d.shape[0], generator=gen)[: self.num_samples]
         return self.valid_loc1d[perm.to(self.device)]

@@ -1,6 +1,5 @@
 """Reprojection factor: 2D pixel residuals over descriptor matches (port of
-sage_slam_tpu/ops/reprojection.py, without the tracker variant, which
-waits for the tracker slice).
+sage_slam_tpu/ops/reprojection.py).
 
 Residual per match m: r_m = u_matched_1 - proj(T10 * (d0 h0_m)), fair
 robust loss per pixel component, gated by warped depth z > eps. Variables
@@ -13,6 +12,10 @@ reproj_loss_param_factor * width^2.
 Batched over leading dims: poses, codes and scales [...], flats
 [..., HW(, CS)], match sets [..., M(, 3|2)], weight [...] (one edge as in
 the JAX package, or E edges at once).
+
+``tracker_reproj_jac_error`` is the tracker's variant: its variables are
+the relative pose (6) or the relative pose and scale0 (7), with the
+Jacobian taken at the warped point directly.
 """
 
 from __future__ import annotations
@@ -98,3 +101,34 @@ def reprojection_error(p0: SE3, p1: SE3, code0, scale0, bias0_flat, jac0_flat,
         has, weight * torch.sum(err_pt, dim=-1) / torch.clamp(n_inl, min=1.0), weight * 10.0
     )
     return error, n_inl
+
+
+def tracker_reproj_jac_error(rot10, t10, depth0, homo_0, matched_2d_1, valid, cam, weight,
+                             loss_param, eps: float, scale0=None):
+    """rot10 [..., 3, 3], t10 [..., 3], depth0 [..., M] (scaled depths at
+    the matched kf0 points), homo_0 [..., M, 3], matched_2d_1 [..., M, 2],
+    valid [..., M] -> (AtA [..., D, D], Atb [..., D], error [...],
+    n_inl [...]), D = 6, or 7 with ``scale0``."""
+    w = residuals.warp(homo_0, depth0, rot10, t10, eps)
+    x1 = residuals.safe_points(w.points_in_1, w.pos_depth)
+    u, v = residuals.project_full_res(x1, cam.fx, cam.fy, cam.cx, cam.cy)
+    diff = matched_2d_1 - torch.stack([u, v], dim=-1)  # [..., M, 2]
+    pos = w.pos_depth.to(diff.dtype) * valid
+    sw = fair_sqrt_weight(diff, loss_param) * pos[..., None]
+    err_pt = fair_error(diff, loss_param) * pos
+
+    rows = residuals.proj_jac_point(x1, cam.fx, cam.fy) @ residuals.point_jac_left(x1)
+    if scale0 is not None:
+        j2d_dpt = residuals.proj_jac_depth(w.rotated_homo, x1, cam.fx, cam.fy)  # [..., M, 2]
+        rows = torch.cat([rows, (j2d_dpt * (depth0 / scale0)[..., None])[..., None]], dim=-1)
+    dim = rows.shape[-1]
+    rows = rows * sw[..., None]
+    lead = rows.shape[:-3]
+    rows2 = rows.reshape(*lead, -1, dim)  # [..., 2M, D]
+    diffs = (sw * diff).reshape(*lead, -1)
+    n_inl = torch.sum(pos, dim=-1)
+    weight, has, inv = _normalize(weight, n_inl, diff)
+    ata = inv[..., None, None] * (rows2.transpose(-1, -2) @ rows2)
+    atb = inv[..., None] * (rows2.transpose(-1, -2) @ diffs[..., None])[..., 0]
+    error = torch.where(has, inv * torch.sum(err_pt, dim=-1), weight * 10.0)
+    return ata, atb, error, n_inl

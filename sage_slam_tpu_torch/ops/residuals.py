@@ -67,21 +67,26 @@ def proj_jac_point(points_in_1: torch.Tensor, fx, fy) -> torch.Tensor:
     return torch.stack([row0, row1], dim=-2)
 
 
+def point_jac_left(points: torch.Tensor) -> torch.Tensor:
+    """[I | -hat(X)]: the Jacobian of a point X [..., N, 3] under a
+    left-multiplied [trans, rot] tangent of its transform -> [..., N, 3, 6]."""
+    x, y, z = points[..., 0], points[..., 1], points[..., 2]
+    zero = torch.zeros_like(x)
+    one = torch.ones_like(x)
+    return torch.stack(
+        [
+            torch.stack([one, zero, zero, zero, z, -y], dim=-1),
+            torch.stack([zero, one, zero, -z, zero, x], dim=-1),
+            torch.stack([zero, zero, one, y, -x, zero], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
 def point_jac_pose0(points_world: torch.Tensor, rot1: torch.Tensor) -> torch.Tensor:
     """d(point_in_1)/d(pose0 tangent) = R1^T [I | -hat(Xw)]: points_world
     [..., N, 3], rot1 [..., 3, 3] -> [..., N, 3, 6]."""
-    xw, yw, zw = points_world[..., 0], points_world[..., 1], points_world[..., 2]
-    zero = torch.zeros_like(xw)
-    one = torch.ones_like(xw)
-    block = torch.stack(
-        [
-            torch.stack([one, zero, zero, zero, zw, -yw], dim=-1),
-            torch.stack([zero, one, zero, -zw, zero, xw], dim=-1),
-            torch.stack([zero, zero, one, yw, -xw, zero], dim=-1),
-        ],
-        dim=-2,
-    )  # [..., N, 3, 6]
-    return rot1.transpose(-1, -2)[..., None, :, :] @ block
+    return rot1.transpose(-1, -2)[..., None, :, :] @ point_jac_left(points_world)
 
 
 def proj_jac_depth(rotated_homo, points_in_1, fx, fy) -> torch.Tensor:

@@ -44,10 +44,11 @@ def _host_ms(fn, reps=5):
     return sum(out) / len(out), out
 
 
-def _profile(label, fn, card, trace_dir):
+def _profile(label, fn, card, trace_dir, warmup: bool = True):
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()

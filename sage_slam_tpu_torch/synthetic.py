@@ -11,7 +11,8 @@ same; the pyramid is computed by the port.
 Both build on the card unless ``device="cpu"`` is passed.
 
 ``mapper_scene`` makes a video for the mapper (numpy arrays: images, a
-smooth trajectory and a circular video mask).
+smooth trajectory and a circular video mask); ``slam_scene`` is the same
+video with enough frames for the tracker to run between keyframes.
 """
 
 from __future__ import annotations
@@ -123,9 +124,9 @@ MASK_RADIUS = 0.46
 
 
 def mapper_scene(num_frames: int = 16, seed: int = 0, height: int = 128,
-                 width: int = 160) -> MapperScene:
+                 width: int = 160, radius: float = 0.05) -> MapperScene:
     """A camera sliding over a textured fronto-parallel plane at depth 1 on a
-    smooth path (a quarter circle of radius 0.05 with a forward drift of
+    smooth path (a quarter circle of ``radius`` with a forward drift of
     0.002 per frame), seen through a
     circular endoscope-like mask of radius ``MASK_RADIUS * width`` that the
     image's top and bottom clip. The texture is a sum of random sinusoids per
@@ -140,7 +141,7 @@ def mapper_scene(num_frames: int = 16, seed: int = 0, height: int = 128,
     f_in = width * 1.1
     angles = np.linspace(0.0, np.pi / 2, num_frames)
     trans = np.stack(
-        [0.05 * np.sin(angles), 0.05 * (1 - np.cos(angles)), 0.002 * np.arange(num_frames)], axis=-1
+        [radius * np.sin(angles), radius * (1 - np.cos(angles)), 0.002 * np.arange(num_frames)], axis=-1
     ).astype(np.float32)
     rot = np.broadcast_to(np.eye(3, dtype=np.float32), (num_frames, 3, 3)).copy()
     yy, xx = np.mgrid[:height, :width].astype(np.float64)
@@ -160,6 +161,22 @@ def mapper_scene(num_frames: int = 16, seed: int = 0, height: int = 128,
                            width=w, height=h)
     return MapperScene(np.clip(images, 0.0, 1.0), rot, trans, mask_in, mask_in[::2, ::2].copy(),
                        camera)
+
+
+# slam_scene: 24 frames on a quarter circle of radius 0.2, about 1.2
+# output pixels of motion per frame at 64x80, so that the keyframe
+# decision fires every few frames (on mapper_scene's radius of 0.05 the
+# whole sequence moves under one keyframe's worth)
+SLAM_FRAMES = 24
+SLAM_RADIUS = 0.2
+
+
+def slam_scene(num_frames: int = SLAM_FRAMES, seed: int = 0, height: int = 128,
+               width: int = 160) -> MapperScene:
+    """The system's sequence: mapper_scene's video (same mask, same seed
+    rule) over more frames and a wider path, so the tracker runs between
+    keyframes."""
+    return mapper_scene(num_frames, seed, height, width, radius=SLAM_RADIUS)
 
 
 def graft_problem(device=None, seed=0, k=4, h=32, w=40, cs=16, fs=16, levels=4, n=512):

@@ -36,13 +36,16 @@ SLICE_MODULES = [
     "ops/depth.py", "ops/residuals.py", "ops/robust_loss.py", "ops/reprojection.py",
     "mapping/keyframe_store.py", "mapping/mapper.py", "solver/ba.py",
     "tracker/matcher.py", "tracker/robust.py", "convert.py", "synthetic.py",
+    # the tracker and frontend slice
+    "ops/match_geometry.py", "tracker/matching_geo.py", "tracker/tracker.py",
+    "frontend/__init__.py", "frontend/slam.py", "profile_slam.py",
 ]
 
 
 @pytest.mark.parametrize("rel", SLICE_MODULES)
 def test_mapper_slice_module_is_guarded(rel):
-    """Every module of the mapper slice exists and is among the files the
-    guard above walks."""
+    """Every module of the mapper and the tracker / frontend slices exists
+    and is among the files the guard above walks."""
     assert ROOT / "sage_slam_tpu_torch" / rel in PORT_FILES
 
 
