@@ -62,7 +62,33 @@ Phases, each of which exits non-zero on failure:
    same prebuilt frame): equal LM iterations and keyframe decision, pose
    and ratios within 1e-4. K1 is held against its plain version and timed
    at this path's window shape;
-8. a JSON line listing every kernel, then the card line, then the last
+8. loop path: loop closure at the same widths (SlamConfig() with
+   LoopConfig(), the fields in LOOP_RELAXED relaxed; the same random
+   networks; the repo's vocabulary eval_artifacts/bow_voc.npz) on
+   synthetic.loop_scene's 43 frames out and back: bootstrap, process_frame
+   per frame (every 4th frame made a keyframe), and after each new keyframe
+   a mapping_step, a local and a global loop tick, and one more mapping_step
+   when a tick added a loop link; then refine_mapping(2). Fails unless a
+   global loop closes, the mapping_step after a loop link holds the link's
+   photometric edges, K1's launches equal the mapping LM iterations, every
+   pose, depth map and variable is finite. After the path (its clock
+   stopped for the clones), the first close_global_loops and the one at
+   the revisit are held against the same call on a CPU clone of the state
+   before it (equal pose-graph iterations, reinitialize counts and links;
+   poses 1e-4, scales 1e-4 relative), once as configured and once with
+   Gaussian loop edges (pose_graph_dcs_factor=0) on a card and a CPU
+   clone, which must move some pose or scale by over 1e-3 so that the
+   hold can fail; LoopConfig()'s own gates are probed on a clone where its
+   window admits a candidate. Prints the gate rejections
+   (SlamSystem.loop_rejections), per keyframe the loop detections with
+   their ms and 7-DoF tracks, host and CUDA-event ms per call of the loop
+   methods (their utils/timing spans), the peak device memory and K1 at
+   the loop window. Then SlamDriver(system, use_native_threads=True).run on
+   a fresh system over the same scene: every keyframe searched by both
+   loop backends, finite state, K1 launched by the mapping worker, and a
+   worker's exception fails the phase; prints frames per second and
+   timing.report(), which gives each thread's solver set-up apart;
+9. a JSON line listing every kernel, then the card line, then the last
    line ``{"ok": true, "device": {...}}``.
 
 Imports neither JAX nor the JAX package.
@@ -621,6 +647,277 @@ def slam_path(dev, card: str, peaks) -> dict:
     return dict(launches=launches, **k1)
 
 
+# LoopConfig fields the loop path relaxes: exactly those tests/test_slam_loop.py
+# relaxes. With LoopConfig()'s gates the random networks close no loop: the
+# revisit candidate (keyframe 10 against keyframe 0) stops at
+# min_desc_inlier_ratio (PERF.md section 4 lists the cut and the values
+# reached); the cycle and metric gates stay as configured
+LOOP_RELAXED = dict(global_active_window=3, min_desc_inlier_ratio=0.0, min_area_ratio=0.0,
+                    min_inlier_ratio=0.0, global_sim_ratio=0.0)
+VOCABULARY = "eval_artifacts/bow_voc.npz"
+# the loop methods' timing spans (SlamSystem)
+LOOP_SPANS = ("detect_global_loop", "detect_local_loop", "verify_loop_7dof", "track_7dof",
+              "close_global_loops")
+
+
+def store_state(system) -> dict:
+    """The store's poses and scales (rows [0, num_active)), reinitialize
+    counts and links on the host, and the last pose-scale solve."""
+    st = system.store
+    n = st.num_active
+    v = st.variables
+    return dict(rot=v.pose.rot[:n].cpu(), trans=v.pose.trans[:n].cpu(), scale=v.scale[:n].cpu(),
+                reinit=st.reinitialize_count.copy(), loop_links=set(st.global_loop_links),
+                links={a: set(b) for a, b in st.links.items()}, graph=dict(system.last_pose_graph))
+
+
+def state_diff(a: dict, b: dict) -> dict:
+    """Largest pose difference and relative scale difference over the rows
+    of ``b``."""
+    n = b["rot"].shape[0]
+    return dict(rot=float((a["rot"][:n] - b["rot"]).abs().max()),
+                trans=float((a["trans"][:n] - b["trans"]).abs().max()),
+                scale=float(((a["scale"][:n] - b["scale"]) / b["scale"]).abs().max()))
+
+
+def hold_close(pre, kf: int, loops, card_after: dict, dev, gaussian: bool) -> str:
+    """close_global_loops from ``pre`` (a CPU clone of the card's state just
+    before that call) on the CPU, held against the card. With
+    ``gaussian`` both sides solve with pose_graph_dcs_factor=0 (plain
+    Gaussian loop edges, the reference's choice), the card side from a
+    clone of ``pre``; otherwise the card side is the path's own call
+    (``card_after``). Fails unless iterations, counts and links are equal,
+    poses within 1e-4 and scales within 1e-4 relative, and, with
+    ``gaussian``, unless the solve moved some pose or scale by over ten
+    times that tolerance."""
+    from sage_slam_tpu_torch import convert
+
+    before = store_state(pre)
+    cpu = pre.clone("cpu")
+    if gaussian:
+        card = pre.clone(dev)
+        for side in (cpu, card):
+            side.cfg = dataclasses.replace(side.cfg, loop=dataclasses.replace(side.cfg.loop,
+                                                                              pose_graph_dcs_factor=0.0))
+        card.close_global_loops(kf, loops)
+        card_after = store_state(card)
+        del card
+    t0 = time.perf_counter()
+    cpu.close_global_loops(kf, [convert.to_device(lp, "cpu") for lp in loops])
+    cpu_s = time.perf_counter() - t0
+    cpu_after = store_state(cpu)
+    diffs = state_diff(card_after, cpu_after)
+    moved = state_diff(card_after, before)
+    same = all(card_after[k] == cpu_after[k] for k in ("loop_links", "links")) and (
+        card_after["graph"]["iterations"] == cpu_after["graph"]["iterations"]
+        and np.array_equal(card_after["reinit"], cpu_after["reinit"]))
+    name = "Gaussian loop edges" if gaussian else "LoopConfig()'s Geman-McClure loop edges"
+    g = card_after["graph"]
+    # float32 roundoff through the pose-graph LM (other sum orders on the
+    # card): poses 1e-4 absolute, scales 1e-4 relative
+    if not same or max(diffs.values()) > 1e-4:
+        fail(f"close_global_loops ({name}, keyframe {kf}) card vs CPU: iterations {g['iterations']} vs "
+             f"{cpu_after['graph']['iterations']}, same counts/links {same}, {diffs}")
+    if gaussian and max(moved.values()) <= 1e-3:
+        fail(f"close_global_loops ({name}, keyframe {kf}): the solve moved no pose or scale by more than "
+             f"1e-3 ({moved}), so the card-vs-CPU hold could not fail")
+    return (f"close_global_loops card vs CPU ({name}; keyframe {kf}, {len(loops)} loop(s) to "
+            f"{[lp.id_ref for lp in loops]}, phi {g['dcs_phi']:.3g}, {g['iterations']} pose-graph iterations, "
+            f"{g['edges']} edges; CPU {cpu_s:.3f} s): largest move from the state before "
+            + ", ".join(f"{k} {x:.3g}" for k, x in moved.items()) + "; card vs CPU max |d| "
+            + ", ".join(f"{k} {x:.3g}" for k, x in diffs.items())
+            + "; reinitialize_count, global_loop_links and links equal: ok")
+
+
+def loop_path(dev, card: str, peaks) -> dict:
+    """Phase 8: loop closure and the threaded driver at the published widths
+    (see the module note)."""
+    from collections import Counter
+
+    from sage_slam_tpu_torch import synthetic
+    from sage_slam_tpu_torch.config import SlamConfig
+    from sage_slam_tpu_torch.frontend.driver import SlamDriver
+    from sage_slam_tpu_torch.loop import vocabulary
+    from sage_slam_tpu_torch.ops import photo_reduce as pr
+    from sage_slam_tpu_torch.profile_slam import KEYFRAME_EVERY, build_system
+    from sage_slam_tpu_torch.utils import timing
+
+    cfg = SlamConfig()
+    cfg = dataclasses.replace(cfg, loop=dataclasses.replace(cfg.loop, **LOOP_RELAXED))
+    scene = synthetic.loop_scene(height=cfg.net_input_size[0], width=cfg.net_input_size[1])
+    n_frames = scene.images.shape[0]
+    voc = vocabulary.load_npz_vocabulary(os.path.join(ROOT, VOCABULARY), device=dev)
+    system, _, _ = build_system(n_frames, device=dev, scene=scene, voc=voc, cfg=cfg)
+    images = torch.from_numpy(scene.images).to(dev)
+    timestamps = [0.1 * f for f in range(n_frames)]
+    lcfg = cfg.loop
+    probe_from = SlamConfig().loop.global_active_window
+    say(f"loop path: {n_frames} frames out and back (the last repeats frame 0's view) "
+        f"{tuple(scene.images.shape[2:])} -> {tuple(scene.mask_out.shape)}, vocabulary {VOCABULARY} "
+        f"({voc.descriptors.shape[0]} nodes, {voc.num_words} words, branching {voc.branching}, {voc.levels} "
+        f"levels); LoopConfig: window {lcfg.global_active_window}, sim ratio {lcfg.global_sim_ratio}, "
+        f"tracker {lcfg.tracking_max_num_iters} LM iterations, cycle and metric gates "
+        f"{lcfg.verify_cycle}/{lcfg.verify_metric_trans}; relaxed {LOOP_RELAXED}; "
+        f"store capacity {cfg.max_keyframes}")
+
+    # CPU clones of the state before a global tick: until the first tick that
+    # closes a loop, at the revisit (the last forced keyframe) and where
+    # LoopConfig()'s own window admits a candidate. They are made with the
+    # path's clock stopped; the holds and the probe run after the path
+    revisit_frame = (n_frames - 1) // KEYFRAME_EVERY * KEYFRAME_EVERY
+    holds, probes = {}, {}
+    map_iters, closed, graphs, links_after, per_kf = [], [], [], [], []
+    untimed = 0.0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pr.photo_reduce.launches = 0
+    timing.reset()
+    timing.enable(True, cuda_events=True)
+    t_path = time.perf_counter()
+    system.bootstrap(timestamps[0], images[0])
+    for f in range(1, n_frames):
+        system.force_keyframe = system.force_keyframe or f % KEYFRAME_EVERY == 0
+        res = system.process_frame(timestamps[f], images[f])
+        if not res.new_keyframe:
+            continue
+        kf = res.keyframe_id
+        system.mapper.mapping_step()
+        map_iters.append(system.mapper.last_step_iters)
+        n_links = sum(len(v) for v in system.store.links.values())
+        local = system.local_loop_tick()
+        pre = None
+        if "first" not in holds or f == revisit_frame or kf >= probe_from:
+            t0 = time.perf_counter()
+            pre = system.clone("cpu")
+            untimed += time.perf_counter() - t0
+        n_tracks = len(system.loop_track_iters)
+        loops = system.global_loop_tick()
+        per_kf.append((kf, local, [lp.id_ref for lp in loops], system.loop_track_iters[n_tracks:]))
+        if kf >= probe_from:
+            probes[kf] = pre
+        if loops:
+            closed.append((kf, [lp.id_ref for lp in loops]))
+            graphs.append(dict(system.last_pose_graph))
+            for name in [n for n, want in (("first", "first" not in holds), ("revisit", f == revisit_frame))
+                         if want]:
+                holds[name] = (pre, kf, loops, store_state(system))
+        if sum(len(v) for v in system.store.links.values()) > n_links:
+            # a loop link: one more mapping_step, over the loop's edges
+            system.mapper.mapping_step()
+            map_iters.append(system.mapper.last_step_iters)
+            links_after.append((kf, [lp.id_ref for lp in loops], list(system.mapper.last_step_photo_pairs)))
+    refine_err = system.refine_mapping(2)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t_path - untimed
+    timing.enable(False)
+    launches = pr.photo_reduce.launches
+    peak = torch.cuda.max_memory_allocated()
+    iters_total = sum(map_iters) + system.refine_iterations
+    n_kf = system.store.num_active
+    spans = {name: timing.calls(name) for name in LOOP_SPANS}
+
+    say(f"loop path: {n_kf} keyframes, global loops closed {closed}, mapping LM iterations {iters_total} "
+        f"(steps {map_iters}, refine_mapping {system.refine_iterations}, error {refine_err:.6g}), "
+        f"photo_reduce launches {launches}; {path_s:.3f} s (clones for the holds not counted)")
+    rejections = system.loop_rejections
+    say(f"loop path gate rejections: {dict(Counter(r[2] for r in rejections))}; "
+        + "; ".join(f"keyframe {q} candidate {r}: {gate} {v if v is None else f'{v:.4g}'} (limit {lim:.4g})"
+                    for q, r, gate, v, lim in rejections))
+    # one detect_global_loop and one detect_local_loop per keyframe after the
+    # first, in keyframe order
+    for (kf, local, found, tracks), (g_ms, g_ev), (l_ms, _) in zip(
+            per_kf, spans["detect_global_loop"], spans["detect_local_loop"]):
+        say(f"  keyframe {kf}: local loop {local.id_ref if local.detected else 'none'} ({l_ms:.3f} ms host); "
+            f"global loops {found}, detect_global_loop {g_ms:.3f} ms host ({g_ev:.3f} ms CUDA events), "
+            f"{len(tracks)} 7-DoF tracks of {tracks} LM iterations")
+    tracks = system.loop_track_iters
+    for name in LOOP_SPANS:
+        runs = spans[name]
+        host = [r[0] for r in runs]
+        extra = ""
+        if name == "track_7dof" and tracks:
+            extra = (f"; {len(tracks)} tracks, {np.mean(tracks):.1f} LM iterations per track, "
+                     f"{sum(host) / max(sum(tracks), 1):.3f} ms per iteration")
+        if name == "close_global_loops":
+            extra = (f"; pose-graph iterations {[g['iterations'] for g in graphs]}, edges "
+                     f"{[g['edges'] for g in graphs]}, Geman-McClure phi {[g['dcs_phi'] for g in graphs]}")
+        say(f"time [{card}] {name}: {len(runs)} calls, {np.mean(host):.3f} ms host clock (runs {min(host):.3f}-"
+            f"{max(host):.3f}), {np.mean([r[1] for r in runs]):.3f} ms CUDA events{extra}" if runs
+            else f"time [{card}] {name}: no call")
+    say(f"loop path [{card}]: peak device memory {peak} bytes")
+
+    if not closed:
+        fail("loop path: no global loop was detected and closed")
+    if not links_after or not all(
+            any((kf, r) in edges or (r, kf) in edges for r in refs) for kf, refs, edges in links_after if refs):
+        fail(f"loop path: the mapping_step after a loop link did not hold its photometric edges {links_after}")
+    if launches == 0 or launches != iters_total:
+        fail(f"loop path: photo_reduce launched {launches} times for {iters_total} mapping LM iterations")
+    v = system.store.variables
+    tensors = [*v.pose, v.code, v.scale] + [system.store.depth_map(i) for i in range(n_kf)]
+    if not all(bool(torch.isfinite(t).all()) for t in tensors):
+        fail("loop path: a pose, depth map or variable is not finite")
+
+    # LoopConfig()'s own gates, where its window admits a candidate, on the
+    # state each tick started from (nothing is closed)
+    for kf, pre in probes.items():
+        pre.cfg = dataclasses.replace(pre.cfg, loop=SlamConfig().loop)
+        first = len(pre.loop_rejections)
+        found = pre.detect_global_loop(kf)
+        say(f"loop path, LoopConfig()'s own gates at keyframe {kf}: loops {[lp.id_ref for lp in found]}; "
+            f"rejections {pre.loop_rejections[first:]}")
+        pre.cfg = cfg
+    del probes
+
+    # the held close_global_loops calls on the CPU, from the same state: as
+    # configured, and with Gaussian loop edges, which move the graph
+    for name, (pre, kf, loops, card_after) in holds.items():
+        say(f"{name}: " + hold_close(pre, kf, loops, card_after, dev, gaussian=False))
+        say(f"{name}: " + hold_close(pre, kf, loops, card_after, dev, gaussian=True))
+    del holds
+
+    k1 = reduce_at_path_shape(system.mapper, cfg, system.cam_pyr, card, peaks, "loop")
+    del system
+    torch.cuda.empty_cache()
+
+    # the threaded driver on a fresh system over the same scene
+    tsys, _, _ = build_system(n_frames, device=dev, scene=scene, voc=voc, cfg=cfg)
+    driver = SlamDriver(tsys, use_native_threads=True)
+
+    def force(f):
+        tsys.force_keyframe = tsys.force_keyframe or (f > 0 and f % KEYFRAME_EVERY == 0)
+
+    timing.reset()
+    timing.enable(True)
+    before = pr.photo_reduce.launches
+    t0 = time.perf_counter()
+    try:
+        results = driver.run(synthetic.SceneSource(scene, before_frame=force))
+    except Exception as exc:  # noqa: BLE001 - the phase fails on any worker or frame error
+        fail(f"threaded driver: {type(exc).__name__}: {exc} (cause {exc.__cause__!r})")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    timing.enable(False)
+    # the frame loop launches no K1; refine_mapping once per LM iteration
+    worker_launches = pr.photo_reduce.launches - before - tsys.refine_iterations
+    n = tsys.store.num_active
+    v = tsys.store.variables
+    tensors = [*v.pose, v.scale] + [tsys.store.depth_map(i) for i in range(n)]
+    if not (tsys.store.local_loop_searched[:n].all() and tsys.store.global_loop_searched[:n].all()):
+        fail("threaded driver: a keyframe was not searched by both loop backends")
+    if not all(bool(torch.isfinite(t).all()) for t in tensors):
+        fail("threaded driver: a pose, scale or depth map is not finite")
+    if worker_launches <= 0:
+        fail("threaded driver: the mapping worker launched photo_reduce no time")
+    say(f"time [{card}] threaded SlamDriver.run: {len(results) + 1} frames in {run_s:.3f} s = "
+        f"{(len(results) + 1) / run_s:.3f} frames/s (the drain and refine_mapping included); {n} keyframes, "
+        f"mapping worker ticks {len(timing.calls('mapping_tick'))} with {worker_launches} photo_reduce "
+        f"launches, global loops {sorted(tsys.global_loops)}")
+    for line in timing.report().splitlines():
+        say(f"  timing [{card}] {line}")
+    return dict(launches=launches, driver_launches=worker_launches, **k1)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old-source", default=None,
@@ -856,15 +1153,21 @@ def main() -> None:
     slammed = slam_path(dev, card, (peak_bw, peak_flops))
     max_err, max_rel = max(max_err, slammed["max_abs_err"]), max(max_rel, slammed["max_rel_err"])
 
-    # ---- 8. result ----
+    # ---- 8. loop path and threaded driver ----
+    looped = loop_path(dev, card, (peak_bw, peak_flops))
+    max_err, max_rel = max(max_err, looped["max_abs_err"]), max(max_rel, looped["max_rel_err"])
+
+    # ---- 9. result ----
     kernels = [{
         "name": "photo_reduce",
         "route": "cuda",
         "source": "sage_slam_tpu_torch/ops/csrc/photo_reduce.cu",
         "replaces": "sage_slam_tpu/ops/pallas_kernels.py:118",
-        "launches": launches["photo_reduce"] + mapped["launches"] + slammed["launches"],
+        "launches": (launches["photo_reduce"] + mapped["launches"] + slammed["launches"]
+                     + looped["launches"] + looped["driver_launches"]),
         "launches_by_path": {"run_ba": launches["photo_reduce"], "mapper": mapped["launches"],
-                             "slam": slammed["launches"]},
+                             "slam": slammed["launches"], "loop": looped["launches"],
+                             "driver": looped["driver_launches"]},
         "max_abs_err": max_err,
         "max_rel_err": max_rel,
         "matched": True,
@@ -877,6 +1180,7 @@ def main() -> None:
         "events_ms": ev_kernel,
         "mapper_shape": mapped["shape"],
         "slam_shape": slammed["shape"],
+        "loop_shape": looped["shape"],
     }]
     if run_old:
         kernels[0]["earlier_ms"] = old_ms

@@ -15,7 +15,12 @@ Package layout (the ported slice):
   models/     the depth and feature networks
   mapping/    keyframe store and mapper (frame build, windowed BA step)
   tracker/    descriptor matching, robust registration, the LM tracker
-  frontend/   SlamSystem: tracking, keyframe decisions, refinement
+  loop/       BoW vocabulary and database, the pose-scale graph
+  frontend/   SlamSystem: tracking, keyframe decisions, loop closure,
+              refinement; SlamDriver: the mapping and loop threads
+  native/     the C++ runtime (threads, queue, profiler, hull), g++ at
+              first use
+  utils/      host tic/toc timing, torch.profiler traces
   convert.py  numpy fields of the JAX package's structures -> torch
   synthetic.py  synthetic BA problems and videos
   _build.py   nvcc build of the CUDA sources at first use

@@ -8,7 +8,9 @@ side, or plain mappings with the same keys. The port never imports JAX.
 The photometric sample ids ``loc1d`` travel as data: the JAX package draws
 them with ``jax.random.permutation``, which torch cannot reproduce.
 
-Network weights travel the same way: ``depth_params_from_numpy`` and
+Vocabularies (``vocabulary_from_numpy``) and verified loops
+(``loop_info_from_numpy``) travel the same way, so a test can hand the JAX
+system's loops to the port. Network weights too: ``depth_params_from_numpy`` and
 ``feature_params_from_numpy`` take the JAX param tree (nested dicts and
 lists of arrays) and fill the port's modules, whose parameter names are the
 tree's paths joined by dots.
@@ -207,3 +209,28 @@ def to_device(tree, device):
     if isinstance(tree, tuple):
         return tuple(to_device(x, device) for x in tree)
     return tree
+
+
+def vocabulary_from_numpy(voc, device=None):
+    """The port's Vocabulary from the JAX Vocabulary's fields (children,
+    descriptors, weights, word_ids, num_words, levels)."""
+    from .loop.vocabulary import vocabulary_from_arrays
+
+    return vocabulary_from_arrays(*(np.asarray(_field(voc, f)) for f in (
+        "children", "descriptors", "weights", "word_ids")), int(_field(voc, "num_words")),
+        int(_field(voc, "levels")), device=device)
+
+
+def loop_info_from_numpy(info, device=None):
+    """The port's LoopInfo from the JAX LoopInfo's fields (``pose_cur_ref``
+    with rot and trans, or None)."""
+    from .frontend.slam import LoopInfo
+
+    dev = resolve_device(device)
+    pose = _opt_field(info, "pose_cur_ref")
+    return LoopInfo(
+        detected=bool(_field(info, "detected")), id_ref=int(_field(info, "id_ref")),
+        pose_cur_ref=None if pose is None else _se3(pose, dev),
+        query_scale=float(_field(info, "query_scale")), ref_scale=float(_field(info, "ref_scale")),
+        desc_inlier_ratio=float(_field(info, "desc_inlier_ratio")), quality=float(_field(info, "quality")),
+    )

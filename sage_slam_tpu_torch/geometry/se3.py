@@ -212,10 +212,17 @@ def pose_distance(
 def se3_log(p: SE3) -> torch.Tensor:
     """Proper SE(3) log (V^-1 applied), tangent = [trans, rot]."""
     omega = so3_log(p.rot)
+    return torch.cat([_rotv(so3_left_jacobian_inverse(omega), p.trans), omega], dim=-1)
+
+
+def so3_left_jacobian_inverse(omega: torch.Tensor) -> torch.Tensor:
+    """J_l^-1(omega) = I - hat/2 + (1/t^2 - (1 + cos t)/(2 t sin t)) hat^2
+    [..., 3] -> [..., 3, 3] (V^-1 of the SE(3) log; d Log(Exp(u) R)/du at
+    u = 0 for omega = Log R), with the series below t = 1e-5."""
     theta = torch.linalg.norm(omega, dim=-1)
     k = hat(omega)
     k2 = k @ k
-    eye = torch.eye(3, dtype=p.rot.dtype, device=p.rot.device).expand(p.rot.shape)
+    eye = torch.eye(3, dtype=omega.dtype, device=omega.device).expand(k.shape)
     theta_sq = theta**2
     small = theta < 1e-5
     small_f = small.to(theta.dtype)
@@ -230,5 +237,4 @@ def se3_log(p: SE3) -> torch.Tensor:
         )
         / safe_theta_sq,
     )
-    v_inv = eye - 0.5 * k + coef[..., None, None] * k2
-    return torch.cat([_rotv(v_inv, p.trans), omega], dim=-1)
+    return eye - 0.5 * k + coef[..., None, None] * k2

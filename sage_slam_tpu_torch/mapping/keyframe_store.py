@@ -4,7 +4,7 @@ sage_slam_tpu/mapping/keyframe_store.py).
 Every per-keyframe tensor lives in one stacked array with a keyframe axis
 (pyramids channel-major, [C, K, T], so the flat view [C, K*T] the factors
 gather from is free), allocated once and written row by row in place.
-Graph topology (links, flags, versions) stays on the host.
+Graph topology (links, loop-search flags, versions) stays on the host.
 
 Concurrency. The JAX store is functional: a snapshot is an immutable
 array. Here rows are written in place, so ``snapshot`` clones the
@@ -90,6 +90,10 @@ class KeyframeStore:
         self.reinitialize_count = np.zeros(k, np.int32)
         self.links: Dict[int, Set[int]] = {}
         self.global_loop_links: Set[tuple] = set()
+        # which keyframes each loop backend has searched (a loop tick takes
+        # the newest unsearched one)
+        self.local_loop_searched = np.zeros(k, bool)
+        self.global_loop_searched = np.zeros(k, bool)
         # aux (non-keyframe) frames: pose-only variables in BA
         self.aux = np.zeros(k, bool)
         # `lock` guards multi-field mutations and snapshot reads; `version[i]`

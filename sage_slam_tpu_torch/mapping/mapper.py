@@ -133,6 +133,7 @@ class Mapper:
         self.last_step_iters = 0
         self.last_step_converged = False
         self.last_step_edges = (0, 0, 0)  # (photometric, geometric, reprojection)
+        self.last_step_photo_pairs: List[tuple] = []  # its photometric edges' keyframe pairs
         # injection point: called after the snapshot (lock released), before
         # the solve
         self.solve_hook = None
@@ -563,6 +564,7 @@ class Mapper:
                 self.last_step_iters = 0
                 self.last_step_converged = False
                 self.last_step_edges = (0, 0, 0)
+                self.last_step_photo_pairs = []
                 return 0.0
             snap_n, snap_version, snap_vars = self.store.snapshot()
             problem, v_c, update_mask, ids, selection = self._compact_step_inputs(
@@ -591,8 +593,10 @@ class Mapper:
             self.store.reinitialize_count = np.maximum(self.store.reinitialize_count - 1, 0)
             # edge lists only append concurrently, so the snapshot's indices
             # stay valid; retirement runs only here
+            photo_pairs = [self.photo_edges[n] for n in selection[0]]
             self._retire_edges(*selection, iters_spent=iters)
         self.last_step_iters = iters
         self.last_step_converged = conv
         self.last_step_edges = tuple(len(s) for s in selection)
+        self.last_step_photo_pairs = photo_pairs
         return err

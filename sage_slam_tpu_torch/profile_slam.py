@@ -47,21 +47,24 @@ LAYERS = ("build_frame", "match_geo", "lm_track", "rest", "create_keyframe")
 KEYFRAME_EVERY = 4
 
 
-def build_system(num_frames: int, device=None):
-    """(SlamSystem, scene, cfg) at the published widths."""
+def build_system(num_frames: int, device=None, scene=None, voc=None, cfg=None):
+    """(SlamSystem, scene, cfg) at the published widths: ``cfg`` defaults
+    to SlamConfig(), ``scene`` to slam_scene's ``num_frames`` frames;
+    ``voc`` (a loop.vocabulary.Vocabulary) enables the BoW database."""
     from . import synthetic
     from .config import SlamConfig
     from .frontend.slam import SlamSystem
     from .models import depth_network, feature_network
 
-    cfg = SlamConfig()
-    scene = synthetic.slam_scene(num_frames, seed=0, height=cfg.net_input_size[0],
-                                 width=cfg.net_input_size[1])
+    cfg = cfg or SlamConfig()
+    if scene is None:
+        scene = synthetic.slam_scene(num_frames, seed=0, height=cfg.net_input_size[0],
+                                     width=cfg.net_input_size[1])
     gen = torch.Generator().manual_seed(0)
     dnet = depth_network.init_network(
         gen, depth_network.DepthNetConfig(basis_inner=((128, 128, cfg.code_size),)))
     fnet = feature_network.init_network(gen, feature_network.FeatureNetConfig())
-    system = SlamSystem(cfg, scene.camera, scene.mask_out, dnet, fnet,
+    system = SlamSystem(cfg, scene.camera, scene.mask_out, dnet, fnet, voc=voc,
                         video_mask_in=scene.mask_in, device=device)
     return system, scene, cfg
 

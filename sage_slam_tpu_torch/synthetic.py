@@ -12,12 +12,16 @@ Both build on the card unless ``device="cpu"`` is passed.
 
 ``mapper_scene`` makes a video for the mapper (numpy arrays: images, a
 smooth trajectory and a circular video mask); ``slam_scene`` is the same
-video with enough frames for the tracker to run between keyframes.
+video with enough frames for the tracker to run between keyframes;
+``loop_scene`` goes out over the same plane and comes back, so that its
+last frame repeats frame 0's view. ``SceneSource`` hands a scene's frames
+out as ``FrameRecord``s, the way the driver reads a camera.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import dataclasses
+from typing import Callable, Iterator, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -123,15 +127,14 @@ class MapperScene(NamedTuple):
 MASK_RADIUS = 0.46
 
 
-def mapper_scene(num_frames: int = 16, seed: int = 0, height: int = 128,
-                 width: int = 160, radius: float = 0.05) -> MapperScene:
-    """A camera sliding over a textured fronto-parallel plane at depth 1 on a
-    smooth path (a quarter circle of ``radius`` with a forward drift of
-    0.002 per frame), seen through a
-    circular endoscope-like mask of radius ``MASK_RADIUS * width`` that the
-    image's top and bottom clip. The texture is a sum of random sinusoids per
-    channel, so each frame is the texture shifted by the camera's motion
-    with no resampling. Everything comes from ``numpy.random.default_rng(seed)``."""
+def _plane_video(trans: np.ndarray, seed: int, height: int, width: int) -> MapperScene:
+    """A camera at translations ``trans`` [F, 3] (no rotation) over a
+    textured fronto-parallel plane at depth 1, seen through a circular
+    endoscope-like mask of radius ``MASK_RADIUS * width`` that the image's
+    top and bottom clip. The texture is a sum of random sinusoids per
+    channel from ``numpy.random.default_rng(seed)``, so each frame is the
+    texture shifted by the camera's motion with no resampling, and two
+    frames at the same translation are the same image."""
     rng = np.random.default_rng(seed)
     n_waves = 12
     freq = rng.uniform(0.04, 0.35, size=(3, n_waves, 2)) * rng.choice([-1, 1], size=(3, n_waves, 2))
@@ -139,10 +142,7 @@ def mapper_scene(num_frames: int = 16, seed: int = 0, height: int = 128,
     amp = rng.uniform(0.2, 1.0, size=(3, n_waves))
     amp /= amp.sum(axis=1, keepdims=True) * 2.2
     f_in = width * 1.1
-    angles = np.linspace(0.0, np.pi / 2, num_frames)
-    trans = np.stack(
-        [radius * np.sin(angles), radius * (1 - np.cos(angles)), 0.002 * np.arange(num_frames)], axis=-1
-    ).astype(np.float32)
+    num_frames = trans.shape[0]
     rot = np.broadcast_to(np.eye(3, dtype=np.float32), (num_frames, 3, 3)).copy()
     yy, xx = np.mgrid[:height, :width].astype(np.float64)
     images = np.empty((num_frames, 3, height, width), np.float32)
@@ -161,6 +161,23 @@ def mapper_scene(num_frames: int = 16, seed: int = 0, height: int = 128,
                            width=w, height=h)
     return MapperScene(np.clip(images, 0.0, 1.0), rot, trans, mask_in, mask_in[::2, ::2].copy(),
                        camera)
+
+
+def _arc(num_points: int, radius: float) -> np.ndarray:
+    """A quarter circle of ``radius`` with a forward drift of 0.002 per
+    point -> translations [num_points, 3]."""
+    angles = np.linspace(0.0, np.pi / 2, num_points)
+    return np.stack(
+        [radius * np.sin(angles), radius * (1 - np.cos(angles)), 0.002 * np.arange(num_points)], axis=-1
+    ).astype(np.float32)
+
+
+def mapper_scene(num_frames: int = 16, seed: int = 0, height: int = 128,
+                 width: int = 160, radius: float = 0.05) -> MapperScene:
+    """The mapper's video: the plane of ``_plane_video`` seen along a
+    quarter circle of ``radius``, with a forward drift of 0.002 per
+    frame."""
+    return _plane_video(_arc(num_frames, radius), seed, height, width)
 
 
 # slam_scene: 24 frames on a quarter circle of radius 0.2, about 1.2
@@ -204,3 +221,43 @@ def graft_problem(device=None, seed=0, k=4, h=32, w=40, cs=16, fs=16, levels=4, 
         torch.ones(k, device=dev),
     )
     return variables, problem, pyr
+
+
+# loop_scene: out and back over slam_scene's path, 43 frames, so that with
+# a keyframe every 4th frame the last keyframe (frame 40) sits 2 frames
+# from frame 0's view and 10 keyframes after keyframe 0 (LoopConfig's
+# global_active_window), and the last frame repeats frame 0's view
+LOOP_FRAMES = 43
+
+
+def loop_scene(num_frames: int = LOOP_FRAMES, seed: int = 0, height: int = 128, width: int = 160,
+               radius: float = SLAM_RADIUS) -> MapperScene:
+    """slam_scene's plane and mask out and back: frame f is at point j of a
+    quarter circle of ``radius``, j = f on the way out (f < num_frames // 2)
+    and j = num_frames - 1 - f on the way back, so the last frame repeats
+    frame 0's view exactly."""
+    half = num_frames // 2
+    j = np.array([f if f < half else num_frames - 1 - f for f in range(num_frames)])
+    return _plane_video(_arc(int(j.max()) + 1, radius)[j], seed, height, width)
+
+
+@dataclasses.dataclass
+class FrameRecord:
+    timestamp: float
+    image: np.ndarray  # [3, H, W] float32 in [0, 1]
+
+
+class SceneSource:
+    """A scene as a camera: ``frames()`` yields FrameRecord(0.1 f, image f).
+    ``before_frame(f)``, when given, runs just before frame f is handed out
+    (on the reading thread)."""
+
+    def __init__(self, scene: MapperScene, before_frame: Optional[Callable[[int], None]] = None):
+        self.scene = scene
+        self.before_frame = before_frame
+
+    def frames(self) -> Iterator[FrameRecord]:
+        for f, image in enumerate(self.scene.images):
+            if self.before_frame is not None:
+                self.before_frame(f)
+            yield FrameRecord(0.1 * f, image)

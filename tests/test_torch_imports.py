@@ -39,13 +39,16 @@ SLICE_MODULES = [
     # the tracker and frontend slice
     "ops/match_geometry.py", "tracker/matching_geo.py", "tracker/tracker.py",
     "frontend/__init__.py", "frontend/slam.py", "profile_slam.py",
+    # the loop-closure and driver slice
+    "loop/__init__.py", "loop/vocabulary.py", "loop/pose_graph.py", "native/__init__.py",
+    "utils/__init__.py", "utils/timing.py", "frontend/driver.py",
 ]
 
 
 @pytest.mark.parametrize("rel", SLICE_MODULES)
 def test_mapper_slice_module_is_guarded(rel):
-    """Every module of the mapper and the tracker / frontend slices exists
-    and is among the files the guard above walks."""
+    """Every module of the mapper, tracker / frontend and loop / driver
+    slices exists and is among the files the guard above walks."""
     assert ROOT / "sage_slam_tpu_torch" / rel in PORT_FILES
 
 
@@ -68,3 +71,15 @@ def test_cuda_build_directory_is_ignored():
     assert _build.CSRC_DIR.is_dir() and all(
         (_build.CSRC_DIR / src).is_file() for src in _build.SOURCES.values()
     )
+
+
+def test_native_runtime_source_is_the_ports_own():
+    """The port's native loader builds its own copy of pipeline.cpp into the
+    git-ignored build directory: its module names no path under
+    sage_slam_tpu/native/ and imports nothing from there."""
+    from sage_slam_tpu_torch import _build, native
+
+    src = (ROOT / "sage_slam_tpu_torch" / "native" / "__init__.py").read_text()
+    assert "sage_slam_tpu/native" not in src and "sage_slam_tpu.native" not in src
+    assert native.SOURCE.parent == ROOT / "sage_slam_tpu_torch" / "native"
+    assert native.SOURCE.is_file() and native.library_path().parent == _build.BUILD_DIR

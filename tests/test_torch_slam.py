@@ -30,6 +30,7 @@ from sage_slam_tpu_torch import convert
 from sage_slam_tpu_torch.frontend import slam as tslam
 from sage_slam_tpu_torch.geometry import se3 as tse3
 from sage_slam_tpu_torch.geometry.camera import PinholeCamera
+from sage_slam_tpu_torch.loop import vocabulary as tvoc
 from sage_slam_tpu_torch.models import depth_network as tdn
 from sage_slam_tpu_torch.models import feature_network as tfn
 from tests.test_slam_e2e import tiny_system
@@ -248,25 +249,31 @@ def test_kept_poses_and_scales_are_copies(run):
 
 
 def test_slam_system_contracts(run):
-    """The loop methods raise NotImplementedError naming the loop slice;
-    a vocabulary is refused; process_frame needs bootstrap; the default
-    device is the card; the reference keyframe is the CLOSEST one, with
-    ties to the first; LAST and FIRST pick as configured."""
+    """Without a vocabulary the global loop finds nothing and closing no
+    loop changes nothing; a local-loop tick searches the newest keyframe;
+    a vocabulary builds the BoW database; process_frame needs bootstrap;
+    the default device is the card; the reference keyframe is the CLOSEST
+    one, with ties to the first; LAST and FIRST pick as configured."""
     jsys, tsys, *_ = run
-    for call in (lambda: tsys.detect_local_loop(0), lambda: tsys.detect_global_loop(0),
-                 lambda: tsys.close_global_loops(0, []), tsys.local_loop_tick, tsys.global_loop_tick):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-            call()
+    twin = tsys.clone("cpu")
+    n = twin.store.num_active
+    assert twin.bow_db is None and twin.detect_global_loop(n - 1) == [] and twin.global_loop_tick() == []
+    before = twin.store.variables.pose.trans.clone()
+    assert twin.close_global_loops(n - 1, []) is None
+    assert torch.equal(before, twin.store.variables.pose.trans)
+    assert isinstance(twin.local_loop_tick(), tslam.LoopInfo)
+    assert twin.store.local_loop_searched[:n].tolist() == [False] * (n - 1) + [True]
     args = (tsys.cfg, tsys.cam, np.ones((16, 20), np.float32), tsys.mapper.depth_net, tsys.mapper.feat_net)
-    with pytest.raises(NotImplementedError):
-        tslam.SlamSystem(*args, voc=object(), device="cpu")
+    voc = tvoc.build_vocabulary(np.random.default_rng(0).standard_normal((200, 8)).astype(np.float32), k=3,
+                                levels=2, device="cpu")
+    with_voc = tslam.SlamSystem(*args, voc=voc, device="cpu")
+    assert with_voc.bow_db.vectors.shape == (tsys.cfg.max_keyframes, voc.num_words)
     fresh = tslam.SlamSystem(*args, device="cpu")
     with pytest.raises(RuntimeError):
         fresh.process_frame(0.0, np.zeros((3, 32, 40), np.float32))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             tslam.SlamSystem(*args)
-    n = tsys.store.num_active
     for i in range(n):
         assert tsys.select_keyframe(tsys.store.pose(i)) == i
     twin = tsys.clone("cpu")
