@@ -88,7 +88,33 @@ Phases, each of which exits non-zero on failure:
    loop backends, finite state, K1 launched by the mapping worker, and a
    worker's exception fails the phase; prints frames per second and
    timing.report(), which gives each thread's solver set-up apart;
-9. a JSON line listing every kernel, then the card line, then the last
+9. demo path: the port's demo CLI, threaded as a user runs it
+   (demo/run_slam.run, the body of main, which also returns the system),
+   over eval_artifacts/EVAL.md's 64-frame Bowl3D orbit (DEMO_URL) at
+   eval_artifacts/slam_config.json's widths (128x160 -> 64x80, CS=FS=16,
+   L=4, N=3072, window 8, LoopConfig's own gates, a 32-keyframe store) with
+   the networks of net_netcfg.json randomly initialised and the repo's
+   vocabulary, writing into _runs/demo (DEMO_KEYFRAME_RELAXED names
+   any relaxed keyframe gate). Fails unless the summary reports 64 frames
+   and at least 2 keyframes, K1's launches equal the LM iterations of the
+   run's mapping_step and refine_mapping calls (Mapper.step_iters_total),
+   every pose, depth map and variable is finite, the three TUM files read
+   back through read_tum equal the system's trajectories to the printed
+   precision and one depth .npy per keyframe is written. Prints frames/s,
+   the timing report, ms per process_frame, keyframes, loops and gate
+   rejections, the frame generation's ms per frame apart, peak device
+   memory, whether map.png was written, and frame and keyframe Sim3/SE3-ATE
+   and keyframe depth RMSE against Bowl3D's ground truth (no bound: random
+   weights). Then K1 at the demo's final window against its plain version,
+   timed; save_state and load_state into a fresh card system: every row
+   and derived table bit-equal and the next mapping_step equal on both
+   (iterations, error within 1e-5 relative); and the ground-truth hold
+   that can fail: tests/test_ate_regression.py's perfect-prior run in the
+   port on the card, on that test's inputs (its JAX sample draws,
+   synthetic.PERFECT_PRIOR_DRAWS), held to its bounds (frame Sim3-ATE under
+   5.5% of the span, keyframe under 5.0%, depth RMSE under 0.05), with the
+   port's own draws printed beside it;
+10. a JSON line listing every kernel, then the card line, then the last
    line ``{"ok": true, "device": {...}}``.
 
 Imports neither JAX nor the JAX package.
@@ -918,6 +944,232 @@ def loop_path(dev, card: str, peaks) -> dict:
     return dict(launches=launches, driver_launches=worker_launches, **k1)
 
 
+# phase 9: the demo CLI over eval_artifacts/EVAL.md's Bowl3D orbit at
+# eval_artifacts/slam_config.json's widths; the only cut is the random
+# weights (the trained networks are not in the repo)
+DEMO_URL = ("bowl3d://?num_frames=64&height=128&width=160&seed=0&orbit_radius=0.22&rot_amp=0.25"
+            "&mask_margin=6")
+DEMO_CONFIG = "eval_artifacts/slam_config.json"
+DEMO_NETCFG = "eval_artifacts/net_netcfg.json"
+DEMO_RUN_DIR = "_runs/demo"
+# KeyframeConfig fields relaxed where the random networks make fewer than 2
+# keyframes by their own ratios (K1 would never launch); empty: none relaxed
+DEMO_KEYFRAME_RELAXED: dict = {}
+# the store's rows in a checkpoint and the tables load_state rebuilds
+STORE_ROWS = ("loc1d", "homo", "bias_flat", "jac_flat", "feat_pyr", "grad_pyr", "feat_desc", "avg_sq_bias")
+STORE_TABLES = ("src_feats", "packed_fg", "packed_feat", "bias_at", "jac_at")
+
+
+def check_tum(path: str, trajectory, label: str) -> None:
+    """The TUM file read back through read_tum equals ``trajectory`` to the
+    file's printed precision: timestamps 6 decimals, translations and
+    quaternion components 8 (rotations compared with the rotation of the
+    unrounded quaternion, to 1e-7)."""
+    from sage_slam_tpu_torch.io import tum_io
+
+    back = tum_io.read_tum(path)
+    if len(back) != len(trajectory):
+        fail(f"{label}: {len(back)} poses in {path}, {len(trajectory)} in the system")
+    rots = torch.stack([p.rot for _, p in trajectory]).cpu().numpy().astype(np.float64)
+    trans = torch.stack([p.trans for _, p in trajectory]).cpu().numpy().astype(np.float64)
+    d_ts = max(abs(a[0] - ts) for a, (ts, _) in zip(back, trajectory))
+    d_t = float(np.abs(np.stack([a[1] for a in back]) - trans).max())
+    want = np.stack([tum_io.quaternion_to_rotation(tum_io.rotation_to_quaternion(r)) for r in rots])
+    d_r = float(np.abs(np.stack([a[2] for a in back]) - want).max())
+    if d_ts > 5.0001e-7 or d_t > 5.0001e-9 or d_r > 1e-7:
+        fail(f"{label}: read_tum differs from the system beyond the printed precision "
+             f"(timestamps {d_ts:.3g}, translations {d_t:.3g}, rotations {d_r:.3g})")
+    say(f"demo path: {os.path.basename(path)} read back: {len(back)} poses, max |d| timestamps {d_ts:.3g}, "
+        f"translations {d_t:.3g}, rotations {d_r:.3g}: ok")
+
+
+def hold_resume(system, path: str, dev) -> str:
+    """save_state, then load_state into a fresh card system built the same
+    way: every row and derived table equal bit for bit, the host state
+    equal, and one further mapping_step on each with equal LM iterations
+    and errors within 1e-5 relative."""
+    from sage_slam_tpu_torch.frontend.slam import SlamSystem
+    from sage_slam_tpu_torch.mapping import serialize
+
+    if system.mapper.reproj_edges:
+        fail("save/resume: the mapper holds reprojection edges (loop links), which the checkpoint "
+             "format does not hold")
+    t0 = time.perf_counter()
+    serialize.save_state(path, system)
+    save_s = time.perf_counter() - t0
+    m = system.mapper
+    fresh = SlamSystem(system.cfg, system.cam, m.mask.cpu().numpy(), m.depth_net, m.feat_net,
+                       voc=system.voc, video_mask_in=m.mask_in.cpu().numpy(), device=dev)
+    t0 = time.perf_counter()
+    serialize.load_state(path, fresh)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    a, b = system.store, fresh.store
+    pairs = [(f"variables.{k}", x, y) for k, x, y in zip(
+        ("rot", "trans", "code", "scale"), (*a.variables.pose, a.variables.code, a.variables.scale),
+        (*b.variables.pose, b.variables.code, b.variables.scale))]
+    pairs += [(k, getattr(a, k), getattr(b, k)) for k in STORE_ROWS + STORE_TABLES]
+    pairs += [(f"{k}[{i}]", x, y) for k in ("dense_fg", "dense_feat")
+              for i, (x, y) in enumerate(zip(getattr(a, k), getattr(b, k)))]
+    differ = [k for k, x, y in pairs if not torch.equal(x, y)]
+    host = dict(num_active=(a.num_active, b.num_active), timestamps=(a.timestamps, b.timestamps),
+                links=(a.links, b.links), loops=(a.global_loop_links, b.global_loop_links),
+                reinit=(a.reinitialize_count.tolist(), b.reinitialize_count.tolist()),
+                aux=(a.aux.tolist(), b.aux.tolist()), curr_kf=(system.curr_kf, fresh.curr_kf),
+                photo=(m.photo_edges, fresh.mapper.photo_edges), geo=(m.geo_edges, fresh.mapper.geo_edges),
+                photo_iters=(m.photo_edge_iters, fresh.mapper.photo_edge_iters),
+                geo_iters=(m.geo_edge_iters, fresh.mapper.geo_edge_iters))
+    differ += [k for k, (x, y) in host.items() if x != y]
+    if differ or len(a.dense_fg) != len(b.dense_fg) or a.packed_fg is None:
+        fail(f"save/resume: the resumed store differs from the saved one in {differ}")
+    err_a = m.mapping_step()
+    it_a = m.last_step_iters
+    err_b = fresh.mapper.mapping_step()
+    it_b = fresh.mapper.last_step_iters
+    rel = abs(err_b - err_a) / max(abs(err_a), 1e-30)
+    if it_a != it_b or rel > 1e-5:
+        fail(f"save/resume: the next mapping_step differs: saved {err_a} ({it_a} iterations), resumed "
+             f"{err_b} ({it_b})")
+    return (f"save/resume on the card: {os.path.getsize(path)} bytes (save {save_s:.3f} s, load and table "
+            f"rebuild {load_s:.3f} s); {len(pairs)} row and table tensors and the host state equal bit for "
+            f"bit; next mapping_step {err_a:.8g} vs {err_b:.8g} (rel {rel:.3g}), {it_a} vs {it_b} "
+            f"iterations: ok")
+
+
+def demo_path(dev, card: str, peaks) -> dict:
+    """Phase 9: the demo CLI end to end (see the module note)."""
+    import importlib.util
+    import shutil
+    from collections import Counter
+
+    from sage_slam_tpu_torch import synthetic
+    from sage_slam_tpu_torch.config import SlamConfig
+    from sage_slam_tpu_torch.demo import run_slam
+    from sage_slam_tpu_torch.eval import ate
+    from sage_slam_tpu_torch.io import dataset, tum_io
+    from sage_slam_tpu_torch.ops import photo_reduce as pr
+    from sage_slam_tpu_torch.utils import timing
+
+    run_dir = os.path.join(ROOT, DEMO_RUN_DIR)
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    cfg_path = os.path.join(ROOT, DEMO_CONFIG)
+    if DEMO_KEYFRAME_RELAXED:
+        cfg = SlamConfig.from_json(cfg_path)
+        cfg = dataclasses.replace(cfg, keyframe=dataclasses.replace(cfg.keyframe, **DEMO_KEYFRAME_RELAXED))
+        cfg_path = os.path.join(run_dir, "slam_config_relaxed.json")
+        cfg.to_json(cfg_path)
+    cfg = SlamConfig.from_json(cfg_path)
+    h_in, w_in = cfg.net_input_size
+    h_out, w_out = cfg.net_output_size
+    data = dataset.from_url(DEMO_URL, num_frames=20, height=h_in, width=w_in)
+    # the frames' generation alone (a host numpy raycast), off the run
+    t0 = time.perf_counter()
+    for i in range(data.n):
+        data.render(i)
+    gen_ms = (time.perf_counter() - t0) * 1e3 / data.n
+    say(f"demo path: {DEMO_URL}: {data.n} frames {h_in}x{w_in} -> {h_out}x{w_out}, config {DEMO_CONFIG} "
+        f"(store capacity {cfg.max_keyframes}, window {cfg.mapper.window_size}, N {cfg.mapper.pho_num_samples}), "
+        f"networks {DEMO_NETCFG} (random, torch.Generator().manual_seed(0)), vocabulary {VOCABULARY}; "
+        f"relaxed keyframe fields {DEMO_KEYFRAME_RELAXED or 'none'}; Bowl3D frame generation "
+        f"{gen_ms:.3f} ms per frame (host numpy raycast, timed apart)")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pr.photo_reduce.launches = 0
+    timing.reset()
+    t0 = time.perf_counter()
+    summary, system = run_slam.run([
+        "--source_url", DEMO_URL, "--config", cfg_path, "--net_config", os.path.join(ROOT, DEMO_NETCFG),
+        "--vocab_path", os.path.join(ROOT, VOCABULARY), "--save_keyframes", "--enable_timing",
+        "--run_log_dir", run_dir,
+    ])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    timing.enable(False)
+    launches = pr.photo_reduce.launches
+    peak = torch.cuda.max_memory_allocated()
+    iters = system.mapper.step_iters_total
+    per_frame = [ms for ms, _ in timing.calls("process_frame")]
+    n = system.store.num_active
+    rejections = Counter(r[2] for r in system.loop_rejections)
+    plot = os.path.exists(os.path.join(run_dir, "map.png"))
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    say(f"time [{card}] demo CLI (threaded): {summary['frames']} frames in {summary['wall_time_s']} s = "
+        f"{summary['fps']} frames/s (host clock around run_slam.run, writing included: {run_s:.3f} s); "
+        f"process_frame {np.mean(per_frame):.3f} ms on average over {len(per_frame)} frames (runs "
+        f"{min(per_frame):.3f}-{max(per_frame):.3f}); {n} keyframes, {summary['global_loops']} global loops, "
+        f"refine_mapping {summary['refine_iterations']} LM iterations; loop gate rejections "
+        f"{dict(rejections)}; mapping LM iterations {iters}, photo_reduce launches {launches}; peak "
+        f"device memory {peak} bytes; map.png {'written' if plot else 'not written'} (matplotlib "
+        f"{'present' if has_mpl else 'absent'})")
+    for line in timing.report().splitlines():
+        say(f"  timing [{card}] {line}")
+    if plot != has_mpl:
+        fail(f"demo path: map.png written {plot} with matplotlib present {has_mpl}")
+    if summary["frames"] != data.n or n < 2:
+        fail(f"demo path: {summary['frames']} frames and {n} keyframes (want {data.n} and at least 2)")
+    if launches == 0 or launches != iters:
+        fail(f"demo path: photo_reduce launched {launches} times for {iters} mapping LM iterations")
+    v = system.store.variables
+    depths = torch.stack([system.store.depth_map(i) for i in range(n)])
+    tensors = [*v.pose, v.code, v.scale, depths] + [p.trans for _, p in system.trajectory]
+    if not all(bool(torch.isfinite(t).all()) for t in tensors):
+        fail("demo path: a pose, depth map or variable is not finite")
+    for name, traj in (("trajectory.txt", system.finalized_trajectory()),
+                       ("trajectory_tracked.txt", system.trajectory),
+                       ("keyframe_trajectory.txt", system.keyframe_trajectory())):
+        check_tum(os.path.join(run_dir, name), traj, f"demo path {name}")
+    npys = sorted(f for f in os.listdir(run_dir) if f.startswith("kf_") and f.endswith("_depth.npy"))
+    if npys != [f"kf_{i:04d}_depth.npy" for i in range(n)]:
+        fail(f"demo path: keyframe depth files {npys} for {n} keyframes")
+    saved = np.stack([np.load(os.path.join(run_dir, f)) for f in npys])
+    np.testing.assert_allclose(saved, depths.cpu().numpy().reshape(n, h_out, w_out), rtol=1e-6)
+
+    # against Bowl3D's exact poses and depths (random weights: no bound)
+    gt = np.stack([data.pose_at(i)[:3, 3] for i in range(data.n)])
+    span = float(np.linalg.norm(gt.max(0) - gt.min(0)))
+    for name in ("trajectory.txt", "trajectory_tracked.txt", "keyframe_trajectory.txt"):
+        traj = tum_io.read_tum(os.path.join(run_dir, name))
+        est = np.stack([t for _, t, _ in traj])
+        ref = gt[[int(round(ts)) for ts, _, _ in traj]]
+        sim3, se3 = ate.ate_rmse(est, ref, "sim3"), ate.ate_rmse(est, ref, "se3")
+        say(f"demo path vs ground truth [{card}] {name}: {len(traj)} poses, Sim3-ATE {sim3:.6f} "
+            f"({sim3 / span:.4%} of the span {span:.6f}), SE3-ATE {se3:.6f} ({se3 / span:.4%})")
+    mask = data.mask(h_out, w_out)
+    kf_ts = system.store.timestamps[:n]
+    rmse = [ate.depth_rmse(saved[i], data.render(int(round(ts)), h_out, w_out)[1], mask)
+            for i, ts in enumerate(kf_ts)]
+    say(f"demo path vs ground truth [{card}]: keyframe depth RMSE (scale-aligned) mean {np.mean(rmse):.6f}, "
+        f"max {np.max(rmse):.6f}: " + ", ".join(f"kf {i} (frame {int(ts)}) {r:.5f}"
+                                              for i, (ts, r) in enumerate(zip(kf_ts, rmse))))
+
+    k1 = reduce_at_path_shape(system.mapper, cfg, system.cam_pyr, card, peaks, "demo")
+    say(hold_resume(system, os.path.join(run_dir, "state.npz"), dev))
+
+    # the ground-truth hold that can fail: the port's counterpart of
+    # tests/test_ate_regression.py's perfect-prior run, on its inputs (the
+    # JAX test's sample draws), held to its bounds
+    for label, draws in (("the JAX test's draws", synthetic.PERFECT_PRIOR_DRAWS), ("the port's own draws", None)):
+        psys, pdata = synthetic.perfect_prior_system(device=dev, draws=draws)
+        t0 = time.perf_counter()
+        r = synthetic.perfect_prior_run(psys, pdata)
+        pp_s = time.perf_counter() - t0
+        say(f"perfect-prior run on the card ({label}, {r['keyframes']} keyframes, {pp_s:.3f} s): frame "
+            f"Sim3-ATE {r['frame_sim3']:.6f} = {r['frame_sim3'] / r['span']:.4%} of the span, keyframe "
+            f"{r['keyframe_sim3']:.6f} = {r['keyframe_sim3'] / r['span']:.4%}, depth RMSE max "
+            f"{max(r['depth_rmse']):.3g}, tracking lost {sum(r['tracking_lost'])}")
+        if draws is not None and not (
+                not any(r["tracking_lost"]) and r["frame_sim3"] < 0.055 * r["span"]
+                and r["keyframe_sim3"] < 0.05 * r["span"] and max(r["depth_rmse"]) < 0.05
+                and r["travel"] > 1e-3):
+            fail(f"perfect-prior run: outside test_ate_regression's bounds (5.5% / 5.0% of the span, depth "
+                 f"RMSE 0.05): {r}")
+    del system, psys
+    torch.cuda.empty_cache()
+    return dict(launches=launches, **k1)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old-source", default=None,
@@ -1157,17 +1409,21 @@ def main() -> None:
     looped = loop_path(dev, card, (peak_bw, peak_flops))
     max_err, max_rel = max(max_err, looped["max_abs_err"]), max(max_rel, looped["max_rel_err"])
 
-    # ---- 9. result ----
+    # ---- 9. demo path ----
+    demoed = demo_path(dev, card, (peak_bw, peak_flops))
+    max_err, max_rel = max(max_err, demoed["max_abs_err"]), max(max_rel, demoed["max_rel_err"])
+
+    # ---- 10. result ----
     kernels = [{
         "name": "photo_reduce",
         "route": "cuda",
         "source": "sage_slam_tpu_torch/ops/csrc/photo_reduce.cu",
         "replaces": "sage_slam_tpu/ops/pallas_kernels.py:118",
         "launches": (launches["photo_reduce"] + mapped["launches"] + slammed["launches"]
-                     + looped["launches"] + looped["driver_launches"]),
+                     + looped["launches"] + looped["driver_launches"] + demoed["launches"]),
         "launches_by_path": {"run_ba": launches["photo_reduce"], "mapper": mapped["launches"],
                              "slam": slammed["launches"], "loop": looped["launches"],
-                             "driver": looped["driver_launches"]},
+                             "driver": looped["driver_launches"], "demo": demoed["launches"]},
         "max_abs_err": max_err,
         "max_rel_err": max_rel,
         "matched": True,
@@ -1181,6 +1437,7 @@ def main() -> None:
         "mapper_shape": mapped["shape"],
         "slam_shape": slammed["shape"],
         "loop_shape": looped["shape"],
+        "demo_shape": demoed["shape"],
     }]
     if run_old:
         kernels[0]["earlier_ms"] = old_ms

@@ -13,7 +13,8 @@ Package layout (the ported slice):
   ops/        pyramid, photometric / geometric / prior factors, the reduce
   solver/     PSD correction, Hessian assembly, LM loop, window BA
   models/     the depth and feature networks
-  mapping/    keyframe store and mapper (frame build, windowed BA step)
+  mapping/    keyframe store, mapper (frame build, windowed BA step),
+              checkpoint save/resume
   tracker/    descriptor matching, robust registration, the LM tracker
   loop/       BoW vocabulary and database, the pose-scale graph
   frontend/   SlamSystem: tracking, keyframe decisions, loop closure,
@@ -21,6 +22,11 @@ Package layout (the ported slice):
   native/     the C++ runtime (threads, queue, profiler, hull), g++ at
               first use
   utils/      host tic/toc timing, torch.profiler traces
+  io/         TUM trajectory files, dataset readers (Bowl3D with ground truth)
+  eval/       ATE with Sim3/SE3 alignment, depth RMSE
+  training/   network-config sidecars (the rest of training is to port)
+  viz/        headless map, depth and warp renderings (matplotlib)
+  demo/       the CLIs: run_slam, result_viewer, voc_builder
   convert.py  numpy fields of the JAX package's structures -> torch
   synthetic.py  synthetic BA problems and videos
   _build.py   nvcc build of the CUDA sources at first use

@@ -112,25 +112,36 @@ class SlamDriver:
 
     # ------------------------------------------------------------------
 
-    def run(self, camera_interface, max_frames: Optional[int] = None):
+    def run(self, camera_interface=None, max_frames: Optional[int] = None, frames=None):
         """The processing loop: bootstrap on the first frame, process_frame
-        on the rest (each record's image becomes a tensor on the system's
-        device), then drain the loop backends and refine_mapping."""
+        on the rest, then drain the loop backends and refine_mapping.
+
+        Frames come from ``camera_interface.frames()`` (each record's image
+        becomes a tensor on the system's device) or, with ``frames=``, are
+        prebuilt FrameData, handed to bootstrap and process_frame as
+        ``frame=``; give one of the two."""
+        if (camera_interface is None) == (frames is None):
+            raise ValueError("give exactly one of camera_interface and frames")
         system = self.system
         self._warm_solvers("frame loop")
         self.start()
         results = []
         try:
-            for i, rec in enumerate(camera_interface.frames()):
+            source = frames if frames is not None else camera_interface.frames()
+            for i, rec in enumerate(source):
                 if max_frames is not None and i >= max_frames:
                     break
                 self.check()
-                img = torch.as_tensor(np.asarray(rec.image), dtype=torch.float32, device=system.device)
+                if frames is not None:
+                    img, fr = None, rec
+                else:
+                    img = torch.as_tensor(np.asarray(rec.image), dtype=torch.float32, device=system.device)
+                    fr = None
                 if system.store.num_active == 0:
-                    system.bootstrap(rec.timestamp, img)
+                    system.bootstrap(rec.timestamp, img, frame=fr)
                     continue
                 with timing.timed("process_frame"):
-                    res = system.process_frame(rec.timestamp, img)
+                    res = system.process_frame(rec.timestamp, img, frame=fr)
                 results.append(res)
                 if res.new_keyframe:
                     if self.kf_queue is not None:

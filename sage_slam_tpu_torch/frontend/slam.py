@@ -939,6 +939,8 @@ class SlamSystem:
             v = self.store.variables
             rot, trans = v.pose.rot.clone(), v.pose.trans.clone()
             scales = v.scale.cpu().tolist()
+        if not self.frame_refs:
+            return []
         s_track = torch.stack([s for *_, s in self.frame_refs]).cpu().tolist()
         out = []
         for (ts, ref, pose_ck, _), s_t in zip(self.frame_refs, s_track):

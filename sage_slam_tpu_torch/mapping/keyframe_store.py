@@ -106,22 +106,29 @@ class KeyframeStore:
         with self.lock:
             return self._add_locked(fr)
 
-    def _allocate_tables(self, fr: FrameData):
+    def write_tables(self, i: int, packed_fg, packed_feat, dense_fg, dense_feat, bias_at, jac_at):
+        """Write one frame's sampling tables (K=1) into row i, allocating the
+        store's tables from their shapes at the first write (call under
+        ``lock``)."""
         k = self.capacity
-        dev = self.device
-        self.packed_fg = torch.zeros(
-            (fr.packed_fg.shape[0], k * fr.packed_fg.shape[1]), dtype=fr.packed_fg.dtype, device=dev
-        )
-        self.packed_feat = torch.zeros(
-            (fr.packed_feat.shape[0], k * fr.packed_feat.shape[1]),
-            dtype=fr.packed_feat.dtype, device=dev,
-        )
-        self.dense_fg = tuple(torch.zeros((k, *d.shape[1:]), dtype=d.dtype, device=dev)
-                              for d in fr.dense_fg)
-        self.dense_feat = tuple(torch.zeros((k, *d.shape[1:]), dtype=d.dtype, device=dev)
-                                for d in fr.dense_feat)
-        self.bias_at = torch.zeros((k, *fr.bias_at.shape), dtype=fr.bias_at.dtype, device=dev)
-        self.jac_at = torch.zeros((k, *fr.jac_at.shape), dtype=fr.jac_at.dtype, device=dev)
+        if self.packed_fg is None:
+            z = lambda shape, like: torch.zeros(shape, dtype=like.dtype, device=self.device)  # noqa: E731
+            self.packed_fg = z((packed_fg.shape[0], k * packed_fg.shape[1]), packed_fg)
+            self.packed_feat = z((packed_feat.shape[0], k * packed_feat.shape[1]), packed_feat)
+            self.dense_fg = tuple(z((k, *d.shape[1:]), d) for d in dense_fg)
+            self.dense_feat = tuple(z((k, *d.shape[1:]), d) for d in dense_feat)
+            self.bias_at = z((k, *bias_at.shape), bias_at)
+            self.jac_at = z((k, *jac_at.shape), jac_at)
+        tq = packed_fg.shape[1]
+        tqf = packed_feat.shape[1]
+        self.packed_fg[:, i * tq : (i + 1) * tq] = packed_fg
+        self.packed_feat[:, i * tqf : (i + 1) * tqf] = packed_feat
+        for big, small in zip(self.dense_fg, dense_fg):
+            big[i] = small[0]
+        for big, small in zip(self.dense_feat, dense_feat):
+            big[i] = small[0]
+        self.bias_at[i] = bias_at
+        self.jac_at[i] = jac_at
 
     def _add_locked(self, fr: FrameData) -> int:
         i = self.num_active
@@ -142,18 +149,8 @@ class KeyframeStore:
         self.feat_desc[i] = fr.feat_desc_flat
         self.avg_sq_bias[i] = fr.avg_sq_bias
         if fr.packed_fg is not None:
-            if self.packed_fg is None:
-                self._allocate_tables(fr)
-            tq = fr.packed_fg.shape[1]
-            tqf = fr.packed_feat.shape[1]
-            self.packed_fg[:, i * tq : (i + 1) * tq] = fr.packed_fg
-            self.packed_feat[:, i * tqf : (i + 1) * tqf] = fr.packed_feat
-            for big, small in zip(self.dense_fg, fr.dense_fg):
-                big[i] = small[0]
-            for big, small in zip(self.dense_feat, fr.dense_feat):
-                big[i] = small[0]
-            self.bias_at[i] = fr.bias_at
-            self.jac_at[i] = fr.jac_at
+            self.write_tables(i, fr.packed_fg, fr.packed_feat, fr.dense_fg, fr.dense_feat,
+                              fr.bias_at, fr.jac_at)
         self.timestamps.append(fr.timestamp)
         self.links[i] = set()
         self.version[i] += 1

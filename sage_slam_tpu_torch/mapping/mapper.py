@@ -134,6 +134,7 @@ class Mapper:
         self.last_step_converged = False
         self.last_step_edges = (0, 0, 0)  # (photometric, geometric, reprojection)
         self.last_step_photo_pairs: List[tuple] = []  # its photometric edges' keyframe pairs
+        self.step_iters_total = 0  # LM iterations of every mapping_step so far
         # injection point: called after the snapshot (lock released), before
         # the solve
         self.solve_hook = None
@@ -229,9 +230,6 @@ class Mapper:
             ).reshape(-1)
             jac_flat = torch.full_like(jac_flat, 0.01)
         feat_pyr, grad_pyr = gaussian_pyramid_with_grad(fmap, self.masks_pyr, self.cam_pyr.levels)
-        packed_fg, packed_feat, dense_fg, dense_feat = photometric.build_photo_tables(
-            feat_pyr, grad_pyr, self.mask_flat, self.cam_pyr
-        )
         c = fdesc.shape[0]
         return FrameData(
             timestamp=timestamp,
@@ -240,19 +238,27 @@ class Mapper:
             feat_pyr=feat_pyr,
             grad_pyr=grad_pyr,
             feat_desc_flat=fdesc.reshape(c, -1).T.contiguous(),
-            src_feats=photometric.sample_source_features(feat_pyr, loc1d, self.cam_pyr),
             loc1d=loc1d,
             homo=interp.locations_1d_to_homo(loc1d, self.cam_pyr[0]),
             avg_sq_bias=self._masked_mean_sq(bias_flat),  # stays on the device
             pose=pose if pose is not None else SE3.identity(device=dev),
             code=torch.zeros(self.cfg.code_size, device=dev),
             scale=1.0,
-            packed_fg=packed_fg,
-            packed_feat=packed_feat,
-            dense_fg=dense_fg,
-            dense_feat=dense_feat,
-            bias_at=bias_flat[loc1d],
-            jac_at=jac_flat[loc1d],
+            **self.frame_tables(feat_pyr, grad_pyr, loc1d, bias_flat, jac_flat),
+        )
+
+    def frame_tables(self, feat_pyr, grad_pyr, loc1d, bias_flat, jac_flat) -> dict:
+        """What build_frame derives from a frame's pyramids [C, T] and
+        [2, C, T], photometric ids and depth maps, by FrameData field:
+        src_feats, the sampling tables (K=1), bias_at and jac_at.
+        serialize.load_state rebuilds a restored row's tables with it."""
+        packed_fg, packed_feat, dense_fg, dense_feat = photometric.build_photo_tables(
+            feat_pyr, grad_pyr, self.mask_flat, self.cam_pyr
+        )
+        return dict(
+            src_feats=photometric.sample_source_features(feat_pyr, loc1d, self.cam_pyr),
+            packed_fg=packed_fg, packed_feat=packed_feat, dense_fg=dense_fg, dense_feat=dense_feat,
+            bias_at=bias_flat[loc1d], jac_at=jac_flat[loc1d],
         )
 
     # ------------------------------------------------------------------
@@ -595,6 +601,7 @@ class Mapper:
             # stay valid; retirement runs only here
             photo_pairs = [self.photo_edges[n] for n in selection[0]]
             self._retire_edges(*selection, iters_spent=iters)
+            self.step_iters_total += iters
         self.last_step_iters = iters
         self.last_step_converged = conv
         self.last_step_edges = tuple(len(s) for s in selection)

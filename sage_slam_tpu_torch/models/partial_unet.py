@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -216,3 +217,23 @@ def head(p_list, x, mask, out_activation, group_size):
         act = out_activation if i == len(p_list) - 1 else "relu"
         x, mask = block(p, x, mask, act, group_size)
     return x, mask
+
+
+def load_torch_state_dict(net: nn.Module, state_dict, prefix: str = "") -> nn.Module:
+    """Copy a state_dict (name -> array or tensor) into ``net``'s parameters,
+    in place, and return ``net``. Names are the parameter names, under
+    ``prefix.`` when a prefix is given. As in the JAX package's loader, only
+    the names present are copied, each cast to its parameter's dtype; a
+    parameter whose name is absent keeps its current (seeded init) value,
+    and names that match no parameter are ignored. A shape that differs
+    from its parameter's raises."""
+    with torch.no_grad():
+        for name, param in net.named_parameters():
+            key = f"{prefix}.{name}" if prefix else name
+            if key not in state_dict:
+                continue
+            value = torch.as_tensor(np.asarray(state_dict[key]))
+            if tuple(value.shape) != tuple(param.shape):
+                raise ValueError(f"{key}: shape {tuple(value.shape)} != parameter {tuple(param.shape)}")
+            param.copy_(value.to(param.dtype))
+    return net

@@ -15,12 +15,15 @@ smooth trajectory and a circular video mask); ``slam_scene`` is the same
 video with enough frames for the tracker to run between keyframes;
 ``loop_scene`` goes out over the same plane and comes back, so that its
 last frame repeats frame 0's view. ``SceneSource`` hands a scene's frames
-out as ``FrameRecord``s, the way the driver reads a camera.
+out as io.dataset ``FrameRecord``s, the way the driver reads a camera.
+
+``perfect_prior_system`` / ``perfect_prior_run`` are
+tests/test_ate_regression.py's ground-truth regression in the port.
 """
 
 from __future__ import annotations
 
-import dataclasses
+import os
 from typing import Callable, Iterator, NamedTuple, Optional
 
 import numpy as np
@@ -30,6 +33,7 @@ from .device import resolve_device
 from .geometry.camera import CameraPyramid, PinholeCamera
 from .geometry.interp import locations_1d_to_homo
 from .geometry.se3 import SE3, se3_exp
+from .io.dataset import FrameRecord
 from .ops.photometric import sample_source_features
 from .ops.pyramid import gaussian_pyramid_with_grad, mask_pyramid
 from .solver.ba import BAProblem, EdgeTable, PriorTable, WindowData
@@ -241,12 +245,6 @@ def loop_scene(num_frames: int = LOOP_FRAMES, seed: int = 0, height: int = 128, 
     return _plane_video(_arc(int(j.max()) + 1, radius)[j], seed, height, width)
 
 
-@dataclasses.dataclass
-class FrameRecord:
-    timestamp: float
-    image: np.ndarray  # [3, H, W] float32 in [0, 1]
-
-
 class SceneSource:
     """A scene as a camera: ``frames()`` yields FrameRecord(0.1 f, image f).
     ``before_frame(f)``, when given, runs just before frame f is handed out
@@ -261,3 +259,98 @@ class SceneSource:
             if self.before_frame is not None:
                 self.before_frame(f)
             yield FrameRecord(0.1 * f, image)
+
+
+# the JAX package's sample ids (jax.random) for perfect_prior_system's 10
+# frames (loc1d [10, 256], by timestamp) and its keyframes' match keypoints
+# (keypoints [12, 32], by keyframe id); tests/test_torch_demo.py checks the
+# file against JAX's draws
+PERFECT_PRIOR_DRAWS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "eval",
+                                   "perfect_prior_draws.npz")
+
+
+def perfect_prior_system(num_frames: int = 10, motion: float = 0.06, device=None,
+                         draws: Optional[str] = None):
+    """tests/test_ate_regression.py's ``perfect_prior_system`` in the port ->
+    (SlamSystem, io.dataset.SyntheticInterface): an exact lateral motion
+    over a fronto-parallel unit-depth plane at 32x40 -> 16x20, the depth
+    network pinned to the constant (exact) prior, the handcrafted
+    shift-equivariant feature bank, binary gates, no coarse-to-fine, 256 of
+    the 320 pixels sampled. The estimator alone is measured: no learned
+    weight enters the result. ``draws`` (an npz such as
+    PERFECT_PRIOR_DRAWS) replaces the port's seeded sample ids and
+    keypoints with the file's, so the run sees the JAX test's inputs."""
+    from .config import KeyframeConfig, MapperConfig, SlamConfig, TrackerConfig
+    from .frontend.slam import SlamSystem
+    from .io.dataset import SyntheticInterface
+    from .models import depth_network, feature_network
+
+    h_out, w_out = 16, 20
+    cs, fs = 4, 8
+    cfg = SlamConfig(
+        net_input_size=(h_out * 2, w_out * 2), net_output_size=(h_out, w_out), code_size=cs,
+        feat_size=fs, pyramid_levels=3, max_keyframes=12,
+        tracker=TrackerConfig(max_num_iters=40, desc_num_keypoints=32, use_reprojection=True,
+                              soft_inlier_gate=False, coarse_to_fine=False),
+        mapper=MapperConfig(pho_num_samples=256, desc_num_keypoints=32, window_size=8,
+                            max_gn_iters=10, soft_inlier_gate=False),
+        keyframe=KeyframeConfig(min_average_motion=0.02),
+    )
+    dnet = depth_network.constant_depth_params(depth_network.init_network(
+        torch.Generator().manual_seed(1),
+        depth_network.DepthNetConfig(filter_list=(4, 8, 16), bottleneck=16, bias_inner=(8, 1),
+                                     basis_inner=((8, cs),))))
+    fnet = feature_network.init_network(
+        torch.Generator().manual_seed(2),
+        feature_network.FeatureNetConfig(filter_list=(4, 8, 16), bottleneck=16, desc_inner=(8, fs),
+                                         map_inner=(8, fs), mode="handcrafted"))
+    data = SyntheticInterface(num_frames=num_frames, height=h_out * 2, width=w_out * 2, seed=0,
+                              motion_scale=motion)
+    out_cam = data.intrinsics().resized(w_out, h_out)
+    system = SlamSystem(cfg, out_cam, np.ones((h_out, w_out), np.float32), dnet, fnet,
+                        device=device)
+    if draws is not None:
+        ids = np.load(draws)
+        loc1d, keypoints = ids["loc1d"], ids["keypoints"]
+        system.mapper.location_source = lambda ts: loc1d[int(round(ts))]
+        system.keypoint_source = lambda kf_id: keypoints[kf_id]
+    return system, data
+
+
+def perfect_prior_run(system, data, refine_iters: int = 8) -> dict:
+    """test_ate_on_synthetic_lateral_motion's run and measurements:
+    bootstrap, process_frame on every later frame with a mapping_step after
+    each new keyframe, refine_mapping(refine_iters); then the as-tracked
+    frame Sim3-ATE, the keyframe Sim3-ATE (against each keyframe's frame
+    pose), the span |gt_last - gt_first|, the estimate's own travel and the
+    scale-aligned depth RMSE of each keyframe against the unit plane."""
+    from .eval import ate
+
+    frames = list(data.frames())
+    dev = system.device
+    system.bootstrap(frames[0].timestamp, torch.as_tensor(frames[0].image, device=dev))
+    lost = []
+    for rec in frames[1:]:
+        res = system.process_frame(rec.timestamp, torch.as_tensor(rec.image, device=dev))
+        lost.append(res.tracking_lost)
+        if res.new_keyframe:
+            system.mapper.mapping_step()
+    system.refine_mapping(refine_iters)
+    est = torch.stack([p.trans for _, p in system.trajectory]).cpu().numpy()
+    gt = np.stack([f.pose_wf[:3, 3] for f in frames])
+    kf_traj = system.keyframe_trajectory()
+    kf_est = torch.stack([p.trans for _, p in kf_traj]).cpu().numpy()
+    kf_gt = np.stack([frames[int(round(ts))].pose_wf[:3, 3] for ts, _ in kf_traj])
+    cam = system.cam
+    ones = np.ones((cam.height, cam.width), np.float32)
+    depths = torch.stack([system.store.depth_map(i) for i in range(system.store.num_active)])
+    return dict(
+        tracking_lost=lost,
+        frame_sim3=ate.ate_rmse(est, gt, align="sim3"),
+        keyframe_sim3=ate.ate_rmse(kf_est, kf_gt, align="sim3"),
+        span=float(np.linalg.norm(gt[-1] - gt[0])),
+        travel=float(np.linalg.norm(est[-1] - est[0])),
+        depth_rmse=[ate.depth_rmse(d.reshape(cam.height, cam.width), ones, ones, align_scale=True)
+                    for d in depths.cpu().numpy()],
+        keyframes=system.store.num_active,
+    )

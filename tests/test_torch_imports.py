@@ -42,13 +42,18 @@ SLICE_MODULES = [
     # the loop-closure and driver slice
     "loop/__init__.py", "loop/vocabulary.py", "loop/pose_graph.py", "native/__init__.py",
     "utils/__init__.py", "utils/timing.py", "frontend/driver.py",
+    # the IO, eval and demo slice
+    "io/__init__.py", "io/tum_io.py", "io/dataset.py", "eval/__init__.py", "eval/ate.py",
+    "training/__init__.py", "training/export.py", "mapping/serialize.py", "viz/__init__.py",
+    "viz/visualizer.py", "viz/warp_display.py", "demo/__init__.py", "demo/run_slam.py",
+    "demo/voc_builder.py", "demo/result_viewer.py",
 ]
 
 
 @pytest.mark.parametrize("rel", SLICE_MODULES)
 def test_mapper_slice_module_is_guarded(rel):
-    """Every module of the mapper, tracker / frontend and loop / driver
-    slices exists and is among the files the guard above walks."""
+    """Every module of the mapper, tracker / frontend, loop / driver and IO /
+    eval / demo slices exists and is among the files the guard above walks."""
     assert ROOT / "sage_slam_tpu_torch" / rel in PORT_FILES
 
 
