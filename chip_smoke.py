@@ -114,7 +114,33 @@ Phases, each of which exits non-zero on failure:
    synthetic.PERFECT_PRIOR_DRAWS), held to its bounds (frame Sim3-ATE under
    5.5% of the span, keyframe under 5.0%, depth RMSE under 0.05), with the
    port's own draws printed beside it;
-10. a JSON line listing every kernel, then the card line, then the last
+10. train path: the training slice at demo/make_eval.py's widths
+   (128x160 -> 64x80, CS=FS=16, DepthNetConfig(basis_inner=((128, 128,
+   16),)), FeatureNetConfig(), DiscConfig(64, 80), TrainConfig(
+   pyramid_levels=4, ba_iters=2, num_photo_samples=128, eval_fraction=0.2,
+   cycle_steps=200)). First K1's gradient: photo_reduce on tensors that
+   carry a graph (K1 forward, the closed-form backward of
+   ops/photo_reduce.PhotoReduceFn) against autograd through
+   photo_reduce_ref, every input's and the weights' cotangent, at the
+   training shape (E=1, N=128) and the bench shape (E=24, N=3072), binary
+   and soft gates, within 1e-4 of each cotangent's max |value|, with the
+   backward timed; K1 at the training shape against its plain version,
+   timed beside the plain version, the library call and its bound. Then 6
+   triplets on make_eval's first training orbit (TRAIN_BOWL, the port's
+   ArraySequenceDataset; cv2 decides the branch, and the line says which) and
+   train.train over 2 epochs (epoch 0 separate, epoch 1 joint; 5 training
+   triplets, 1 held out) into the git-ignored _runs/train. Fails unless K1's
+   forward launches equal 8 x (5 joint train steps + 1 joint eval step) =
+   48, its backward ran 2 x 5 times, the history's phases are [False, True]
+   with a flow entry in the joint eval, every logged value and parameter is
+   finite and the BA weights and log sigma changed; one joint train step on
+   the card is held against the same step on a CPU copy, and each
+   generator leaf's gradient against the CPU's (TRAIN_HOLD_*); the
+   exported networks, loaded as the demo loads them, build the same frame
+   bit for bit; a resume restores epoch 2 and every parameter. Prints ms
+   per separate, joint and eval step (host clock and CUDA events) and the
+   peak device memory;
+11. a JSON line listing every kernel, then the card line, then the last
    line ``{"ok": true, "device": {...}}``.
 
 Imports neither JAX nor the JAX package.
@@ -1170,6 +1196,369 @@ def demo_path(dev, card: str, peaks) -> dict:
     return dict(launches=launches, **k1)
 
 
+# phase 10: the training slice at demo/make_eval.py's widths on its first
+# training orbit (make_eval.py:78-117); the cuts: 6 triplets (5 trained, 1
+# held out), 2 epochs (1 separate, 1 joint)
+TRAIN_BOWL = dict(num_frames=64, height=128, width=160, seed=0, orbit_radius=0.16, rot_amp=0.15,
+                  mask_margin=6)
+TRAIN_TRIPLETS = 6
+TRAIN_RUN_DIR = "_runs/train"
+# K1's backward at the training shape (E=1, L=4, C=16, N=128) and the bench
+# shape (E=24, N=3072)
+BACKWARD_SHAPES = (((1, 4, 16, 128, 29), "training shape"), ((24, 4, 16, 3072, 29), "bench shape"))
+# the card's joint train step against the CPU's: float32 roundoff of cuDNN's
+# and the CPU's convolutions through two full-width U-Nets, forward and
+# backward, and of the LM's solves. The loss to 1e-3 relative; the aux
+# scalars to 1e-2 relative (depth, g_adv and d_loss read the BA's dense
+# depth, which random networks drive to |values| of ~200, where 1e-5
+# relative differences of the code grow); the parameter updates to 1e-2 of
+# the largest update of any parameter, and the update vector to 1e-2 in L2.
+# Each generator leaf's gradient of the same joint loss, card against CPU,
+# relative to that leaf's own largest |gradient| on the CPU: the BA scalars
+# and log_sigma (their gradients reach them through K1's backward, the
+# weights' cotangent among them) to TRAIN_HOLD_SCALAR, each network tensor
+# to TRAIN_HOLD_LEAF (small leaves of a large gradient carry the most
+# roundoff). On an H100 80GB HBM3 at 700 W the scalars read 9.4e-7 to
+# 7.3e-3 and the network leaves up to 1.8e-2 (5.7e-2 in an earlier call);
+# a wrong gradient reads O(1). A network leaf whose gradient is zero but
+# for roundoff is exempt: its largest |gradient| on the CPU lies below
+# float32's epsilon times the gradient's L2 norm (a conv bias before a
+# one-channel GroupNorm group, which subtracts that channel's own mean).
+TRAIN_HOLD_LOSS, TRAIN_HOLD_AUX, TRAIN_HOLD_UPDATE = 1e-3, 1e-2, 1e-2
+TRAIN_HOLD_SCALAR, TRAIN_HOLD_LEAF = 2e-2, 2.5e-1
+
+
+def reduce_backward_check(dev, shape, soft: bool, seed: int, label: str) -> dict:
+    """K1's closed-form backward on the card (photo_reduce on tensors that
+    carry a graph: K1 forward, PhotoReduceFn backward) against autograd
+    through photo_reduce_ref on the same inputs and cotangents, every input's
+    and the weights' cotangent. Returns the errors and, timed, the backward
+    alone beside the plain version's backward."""
+    from sage_slam_tpu_torch.ops import photo_reduce as pr
+
+    e, lv, c, n, dim = shape
+    ratios = tuple((0.5**lvl, 0.5**lvl) for lvl in range(lv))
+    ins = [t.requires_grad_(True) for t in reduce_inputs(e, lv, c, n, dim, soft, seed, dev)]
+    w = torch.tensor(WEIGHTS[:lv], device=dev, requires_grad=True)
+    wrt = [*ins, w]
+    launches, calls = pr.photo_reduce.launches, pr.photo_reduce.backward_calls
+    outs = pr.photo_reduce(*ins, w, ratios)
+    gen = torch.Generator().manual_seed(seed)
+    cots = [torch.randn(o.shape, generator=gen).to(dev) for o in outs]
+    got = torch.autograd.grad(outs, wrt, cots)
+    if pr.photo_reduce.launches != launches + 1 or pr.photo_reduce.backward_calls != calls + 1:
+        fail(f"K1 backward {label}: the graph did not go through the kernel and PhotoReduceFn")
+    ref_outs = pr.photo_reduce_ref(*ins, w, ratios)
+    ref = torch.autograd.grad(ref_outs, wrt, cots, retain_graph=True)
+    names = ("fgs", "f0_cm", "gate", "kx", "ky", "weights")
+    abs_err = rel_err = 0.0
+    for name, a, b in zip(names, got, ref):
+        scale = float(b.abs().max())
+        d = float((a - b).abs().max())
+        if not d <= 1e-4 * scale:
+            fail(f"K1 backward {label}: d{name} differs from autograd through the plain version by "
+                 f"{d} (max |value| {scale}, tolerance 1e-4 of it)")
+        abs_err, rel_err = max(abs_err, d), max(rel_err, d / max(scale, 1e-30))
+    for name in ("fgs", "kx", "weights"):
+        if not float(got[names.index(name)].abs().max()) > 0:
+            fail(f"K1 backward {label}: d{name} is zero on the card")
+    plain_in = [t.detach() for t in wrt]
+
+    def run_backward():
+        pr.photo_reduce_backward(*plain_in, ratios, *cots)
+
+    def run_plain_backward():
+        torch.autograd.grad(ref_outs, wrt, cots, retain_graph=True)
+
+    for fn in (run_backward, run_plain_backward):
+        fn()
+    torch.cuda.synchronize()
+    ms = device_ms(run_backward, 20)
+    plain_ms = device_ms(run_plain_backward, 20)
+    ev_ms = cuda_ms(run_backward, 20)
+    pr.photo_reduce.launches, pr.photo_reduce.backward_calls = launches, calls
+    return dict(abs_err=abs_err, rel_err=rel_err, ms=ms, plain_ms=plain_ms, events_ms=ev_ms)
+
+
+def time_steps(fn, reps: int = 3):
+    """Host-clock and CUDA-event ms of fn() after one warm-up call."""
+    fn()
+    host, events = [], []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        events.append(start.elapsed_time(stop))
+    return float(np.mean(host)), float(np.mean(events)), host
+
+
+def train_hold(state, triplet, pyr, tcfg, dev) -> str:
+    """One joint train step on the card against the same step on a CPU copy:
+    same parameters, batch and injected sample ids; and each generator
+    leaf's gradient of the joint loss, card against CPU."""
+    from sage_slam_tpu_torch.training import train
+
+    ids = train.draw_sample_ids(torch.Generator().manual_seed(7), pyr[0].num_pixels,
+                                tcfg.num_photo_samples)
+    loss_fn = train.make_loss_fn(pyr, tcfg, True)
+    out = []
+    for where in (dev, torch.device("cpu")):
+        st = train.clone_state(state, where)
+        batch = train.triplet_to_batch(triplet, triplet.camera, where)
+        gen = train.param_leaves(st.params, with_disc=False)
+        grads = torch.autograd.grad(loss_fn(st.params, batch, ids)[0], [t for _, t in gen],
+                                    allow_unused=True)
+        grads = [torch.zeros_like(t) if g is None else g.detach() for (_, t), g in zip(gen, grads)]
+        before = [t.detach().clone() for _, t in train.param_leaves(st.params)]
+        step = train.make_train_step(pyr, tcfg, True, tcfg.joint_lr_factor)
+        st, loss, aux = step(st, batch, ids=ids)
+        after = [t.detach() for _, t in train.param_leaves(st.params)]
+        out.append((float(loss), {k: float(v) for k, v in aux.items()},
+                    [(a - b).cpu() for a, b in zip(after, before)], [g.cpu() for g in grads]))
+    (lg, ag, dg, gg), (lc, ac, dc, gc) = out
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)  # noqa: E731
+    loss_rel = rel(lg, lc)
+    aux_key = max(ac, key=lambda k: rel(ag[k], ac[k]))
+    aux_rel = rel(ag[aux_key], ac[aux_key])
+    names = [n for n, _ in train.param_leaves(state.params)]
+    top = max(float(b.abs().max()) for b in dc)
+    diffs = [float((a - b).abs().max()) for a, b in zip(dg, dc)]
+    worst = int(np.argmax(diffs))
+    l2 = float(torch.sqrt(sum(((a - b).double() ** 2).sum() for a, b in zip(dg, dc)))
+               / torch.sqrt(sum((b.double() ** 2).sum() for b in dc)))
+
+    # each generator leaf's gradient against its own largest |gradient|
+    gen_names = [n for n, _ in train.param_leaves(state.params, with_disc=False)]
+    g_norm = float(torch.sqrt(sum((g.double() ** 2).sum() for g in gc)))
+    floor = float(np.finfo(np.float32).eps) * g_norm
+    leaves = []
+    for n, a, b in zip(gen_names, gg, gc):
+        own = float(b.abs().max())
+        d = float((a - b).abs().max())
+        scalar = n.startswith("ba.") or n == "log_sigma"
+        leaves.append(dict(name=n, own=own, diff=d, rel=d / own if own > 0 else (0.0 if d == 0 else np.inf),
+                           exempt=own <= floor and not scalar, scalar=scalar))
+    exempt = [r for r in leaves if r["exempt"]]
+    held = [r for r in leaves if not r["exempt"]]
+    bad = [r for r in held if not r["rel"] <= (TRAIN_HOLD_SCALAR if r["scalar"] else TRAIN_HOLD_LEAF)]
+    w_scalar = max((r for r in held if r["scalar"]), key=lambda r: r["rel"])
+    w_leaf = max((r for r in held if not r["scalar"]), key=lambda r: r["rel"])
+    line = (f"joint train step card vs CPU: loss {lg:.8g} vs {lc:.8g} (rel {loss_rel:.3g}, tolerance "
+            f"{TRAIN_HOLD_LOSS}); worst aux {aux_key} {ag[aux_key]:.8g} vs {ac[aux_key]:.8g} (rel "
+            f"{aux_rel:.3g}, tolerance {TRAIN_HOLD_AUX}); update difference {diffs[worst] / top:.3g} of the "
+            f"largest update {top:.4g} (at {names[worst]}; tolerance {TRAIN_HOLD_UPDATE}), L2 {l2:.3g} "
+            f"(tolerance {TRAIN_HOLD_UPDATE}); per-leaf gradients (|g| {g_norm:.6g}, roundoff floor "
+            f"{floor:.3g}): worst scalar {w_scalar['name']} {w_scalar['rel']:.3g} of its |g| "
+            f"{w_scalar['own']:.4g} (tolerance {TRAIN_HOLD_SCALAR}), "
+            + ", ".join(f"{r['name']} {r['rel']:.3g}" for r in held if r["scalar"])
+            + f"; worst network leaf {w_leaf['name']} {w_leaf['rel']:.3g} of its |g| {w_leaf['own']:.4g} "
+            f"(tolerance {TRAIN_HOLD_LEAF}); exempt below the floor: "
+            + (", ".join(f"{r['name']} |g| {r['own']:.3g}" for r in exempt) or "none"))
+    if bad or not (loss_rel <= TRAIN_HOLD_LOSS and aux_rel <= TRAIN_HOLD_AUX
+                   and diffs[worst] <= TRAIN_HOLD_UPDATE * top and l2 <= TRAIN_HOLD_UPDATE):
+        fail(line + "; over tolerance: " + ", ".join(f"{r['name']} {r['rel']:.3g}" for r in bad))
+    return line + ": ok"
+
+
+def train_path(dev, card: str, peaks) -> dict:
+    """Phase 10: the training slice on the card (see the module note)."""
+    import shutil
+
+    from sage_slam_tpu_torch.geometry.camera import CameraPyramid
+    from sage_slam_tpu_torch.io.dataset import Bowl3DInterface
+    from sage_slam_tpu_torch.models import depth_network, feature_network
+    from sage_slam_tpu_torch.models.partial_unet import load_torch_state_dict
+    from sage_slam_tpu_torch.ops import photo_reduce as pr
+    from sage_slam_tpu_torch.training import dataset as tds
+    from sage_slam_tpu_torch.training import discriminator, export, train
+
+    # 1. K1's gradient on the card
+    bwd = {}
+    for i, (shape, label) in enumerate(BACKWARD_SHAPES):
+        for soft in (False, True):
+            r = reduce_backward_check(dev, shape, soft, 40 + i, label)
+            tag = f"{label} {'soft' if soft else 'binary'} gate"
+            say(f"K1 backward vs autograd through the plain version [{card}] {tag} E={shape[0]} "
+                f"N={shape[3]}: max abs {r['abs_err']:.4g}, max rel {r['rel_err']:.4g} (of each "
+                f"cotangent's max |value|); backward {r['ms']:.4f} ms device (events "
+                f"{r['events_ms']:.4f}), plain autograd backward {r['plain_ms']:.4f} ms: ok")
+            bwd[(label, soft)] = r
+
+    # K1 forward at the training shape: against its plain version, timed
+    e, lv, c, n, dim = BACKWARD_SHAPES[0][0]
+    ratios = tuple((0.5**lvl, 0.5**lvl) for lvl in range(lv))
+    prep = reduce_inputs(e, lv, c, n, dim, False, 50, dev)
+    saved = pr.photo_reduce.launches
+    abs_err, rel_err = compare_reduce(pr.photo_reduce(*prep, WEIGHTS, ratios),
+                                      pr.photo_reduce_ref(*prep, WEIGHTS, ratios), True, "training shape")
+    run_library = library_call(prep)
+    t_k = device_ms(lambda: pr.photo_reduce(*prep, WEIGHTS, ratios), 50, "photo_reduce")
+    t_p = device_ms(lambda: pr.photo_reduce_ref(*prep, WEIGHTS, ratios), 50)
+    t_l = device_ms(run_library, 50)
+    pr.photo_reduce.launches = saved
+    bound_ms, bound_by, in_b, out_b, _ = reduce_bound(prep, *peaks)
+    say(f"time [{card}] K1 at the training shape E={e} L={lv} C={c} N={n}: kernel {t_k:.5f} ms device, "
+        f"plain {t_p:.4f} ms, library bmm {t_l:.4f} ms, bound {bound_ms:.6f} ms by {bound_by} "
+        f"({(in_b + out_b) / 1e3:.1f} kB) = {bound_ms / t_k:.1%} of bound")
+
+    # 2. triplets on make_eval's first training orbit
+    run_dir = os.path.join(ROOT, TRAIN_RUN_DIR)
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    t0 = time.perf_counter()
+    arrays = Bowl3DInterface(**TRAIN_BOWL).to_arrays()
+    render_s = time.perf_counter() - t0
+    tcfg_t = tds.TripletConfig(num_keypoints=128, frame_interval=3, far_frame_interval=10,
+                               use_rotation_aug=False)
+    src = tds.ArraySequenceDataset(arrays, cfg=tcfg_t, out_hw=(64, 80), in_hw=(128, 160), seed=0)
+    t0 = time.perf_counter()
+    triplets = [src.sample() for _ in range(TRAIN_TRIPLETS)]
+    triplet_s = time.perf_counter() - t0
+    say(f"train path: Bowl3D {TRAIN_BOWL} rendered in {render_s:.3f} s; {len(triplets)} triplets in "
+        f"{triplet_s:.3f} s on the {'cv2' if tds._HAS_CV2 else 'no-cv2 (numpy fallback)'} branch; "
+        f"keypoints {[int(t.keypoints_src.size) for t in triplets]}, far-overlap valid "
+        f"{[bool(t.far_overlap_valid) for t in triplets]}")
+
+    # 3. the training run: epoch 0 separate, epoch 1 joint
+    cam = triplets[0].camera
+    depth_cfg = depth_network.DepthNetConfig(basis_inner=((128, 128, 16),))
+    feat_cfg = feature_network.FeatureNetConfig()
+    disc_cfg = discriminator.DiscConfig(img_height=64, img_width=80)
+    tcfg = train.TrainConfig(pyramid_levels=4, ba_iters=2, num_photo_samples=128, eval_fraction=0.2,
+                             cycle_steps=200, separate_train_epoch=1)
+    pyr = CameraPyramid.build(cam, tcfg.pyramid_levels)
+    init = train.init_state(torch.Generator().manual_seed(0), depth_cfg, feat_cfg, disc_cfg, tcfg, dev)
+    init_leaves = [t.detach().clone() for _, t in train.param_leaves(init.params)]
+    del init
+    ckpt = os.path.join(run_dir, "ckpt.npz")
+    log = os.path.join(run_dir, "scalars.jsonl")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pr.photo_reduce.launches = 0
+    pr.photo_reduce.backward_calls = 0
+    t0 = time.perf_counter()
+    state, history = train.train(triplets, cam, depth_cfg, feat_cfg, disc_cfg, tcfg, num_epochs=2,
+                                 seed=0, checkpoint_path=ckpt, log_path=log, device=dev)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches, bwd_calls = pr.photo_reduce.launches, pr.photo_reduce.backward_calls
+    peak = torch.cuda.max_memory_allocated()
+    n_train = TRAIN_TRIPLETS - 1
+    per_step = tcfg.ba_iters * (1 + 3)
+    say(f"train path: train() 2 epochs ({n_train} train + 1 eval triplets each) in {run_s:.3f} s; K1 "
+        f"forward launches {launches} (want {per_step} x ({n_train} joint train steps + 1 joint eval "
+        f"step) = {per_step * (n_train + 1)}), K1 backward calls {bwd_calls} (want {tcfg.ba_iters} per "
+        f"joint train step = {tcfg.ba_iters * n_train}); peak device memory {peak} bytes")
+    for h in history:
+        say(f"  epoch {h['epoch']} {'joint' if h['joint'] else 'separate'} eval: "
+            + ", ".join(f"{k} {v:.6g}" for k, v in h["eval"].items()))
+    if launches != per_step * (n_train + 1):
+        fail(f"train path: K1 launched {launches} times, want {per_step * (n_train + 1)}")
+    if bwd_calls != tcfg.ba_iters * n_train:
+        fail(f"train path: K1's backward ran {bwd_calls} times, want {tcfg.ba_iters * n_train}")
+    if [h["joint"] for h in history] != [False, True] or "flow" not in history[1]["eval"]:
+        fail(f"train path: history {history}")
+    records = [json.loads(line) for line in open(log)]
+    train_recs = [r for r in records if r["tag"] == "train"]
+    if len(train_recs) != 2 * n_train or not all(
+            np.isfinite(v) for r in records for k, v in r.items() if k not in ("tag", "step")):
+        fail(f"train path: {len(train_recs)} train records or a non-finite logged value")
+    if not all(np.isfinite(v) for h in history for v in h["eval"].values()):
+        fail("train path: a non-finite eval loss")
+    leaves = train.param_leaves(state.params)
+    moved = {name: float((t.detach() - t0_).abs().max()) for (name, t), t0_ in zip(leaves, init_leaves)}
+    if not all(np.isfinite(float(t.detach().abs().max())) for _, t in leaves):
+        fail("train path: a parameter is not finite")
+    for name in ("ba.photo_weight", "ba.geometry_term_weight", "log_sigma"):
+        if not moved[name] > 0:
+            fail(f"train path: {name} did not change")
+    say(f"train path: {sum(v > 0 for v in moved.values())} of {len(moved)} parameter tensors changed; "
+        f"ba.photo_weight {float(state.params['ba'].photo_weight.detach()):.8g}, log_sigma "
+        f"{float(state.params['log_sigma'].detach()):.8g}: ok")
+
+    # 4. the card against the CPU
+    say(train_hold(state, triplets[0], pyr, tcfg, dev))
+
+    # 5. export, the demo loaders, resume
+    paths = export.export_networks(state, os.path.join(run_dir, "net"), depth_cfg, feat_cfg)
+    d_cfg, f_cfg = export.load_net_configs(paths["netcfg"])
+    dnet = depth_network.init_network(torch.Generator().manual_seed(0), d_cfg)
+    fnet = feature_network.init_network(torch.Generator().manual_seed(0), f_cfg)
+    load_torch_state_dict(dnet, dict(np.load(paths["depth"])))
+    load_torch_state_dict(fnet, dict(np.load(paths["feat"])))
+    ba2 = export.load_ba_params(paths["ba"], device=dev)
+    if not all(torch.equal(a, b.detach()) for a, b in zip(ba2, state.params["ba"])):
+        fail("export: the BA weights did not round-trip")
+    from sage_slam_tpu_torch.config import SlamConfig
+    from sage_slam_tpu_torch.mapping.mapper import Mapper
+
+    scfg = dataclasses.replace(SlamConfig(), max_keyframes=2)
+    batch = train.triplet_to_batch(triplets[0], cam, dev)
+    frames = []
+    for dn, fn in ((dnet, fnet), (state.params["depth"], state.params["feat"])):
+        mapper = Mapper(scfg, pyr, triplets[0].mask, dn, fn,
+                        video_mask_in=batch["mask_in"].cpu().numpy(), device=dev)
+        with torch.no_grad():
+            frames.append(mapper.build_frame(0.0, batch["image_src"], loc1d=torch.arange(128, device=dev)))
+    for name in ("bias_flat", "jac_flat", "feat_pyr", "feat_desc_flat"):
+        if not torch.equal(getattr(frames[0], name), getattr(frames[1], name)):
+            fail(f"export: build_frame's {name} from the exported networks differs from the trained ones")
+    resumed, hist2 = train.train(triplets, cam, depth_cfg, feat_cfg, disc_cfg, tcfg, num_epochs=2, seed=0,
+                                 checkpoint_path=ckpt, resume=True, device=dev)
+    if resumed.epoch != 2 or hist2 or not all(
+            torch.equal(a.detach(), b.detach()) for (_, a), (_, b) in zip(
+                train.param_leaves(resumed.params), leaves)):
+        fail(f"resume: epoch {resumed.epoch}, {len(hist2)} epochs run, or parameters differ")
+    say(f"export: {sorted(paths)} written, loaded through load_net_configs and load_torch_state_dict; "
+        f"build_frame from them equals the trained networks' bit for bit; resume restores epoch "
+        f"{resumed.epoch} and every parameter: ok")
+
+    # 6. times per step after warm-up (on a copy; these launches are not counted)
+    saved = pr.photo_reduce.launches, pr.photo_reduce.backward_calls
+    st = train.clone_state(state)
+    ids_gen = torch.Generator().manual_seed(3)
+    times = {}
+    for label, joint in (("separate", False), ("joint", True)):
+        step = train.make_train_step(pyr, tcfg, joint, tcfg.joint_lr_factor if joint else 1.0)
+        holder = [st]
+
+        def run(step=step, holder=holder):
+            holder[0] = step(holder[0], batch, generator=ids_gen)[0]
+
+        times[label] = time_steps(run)
+    ev = train.make_eval_step(pyr, tcfg, True)
+    times["eval"] = time_steps(lambda: ev(st, batch, generator=ids_gen))
+    pr.photo_reduce.launches, pr.photo_reduce.backward_calls = saved
+    for label, (host, events, runs) in times.items():
+        say(f"time [{card}] train path {label} step: {host:.3f} ms host clock, {events:.3f} ms CUDA "
+            f"events (mean of 3 after a warm-up; host runs {', '.join(f'{x:.3f}' for x in runs)})")
+    del state, st, frames
+    torch.cuda.empty_cache()
+    worst = max(bwd.values(), key=lambda r: r["rel_err"])
+    return dict(launches=launches, backward_calls=bwd_calls, max_abs_err=abs_err, max_rel_err=rel_err,
+                shape=[e, lv, c, n, dim], ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bound_ms,
+                bound_by=bound_by,
+                backward={
+                    "route": "torch ops, closed form",
+                    "source": "sage_slam_tpu_torch/ops/photo_reduce.py:photo_reduce_backward",
+                    "calls": bwd_calls,
+                    "max_abs_err": max(r["abs_err"] for r in bwd.values()),
+                    "max_rel_err": worst["rel_err"],
+                    "ms_training_shape": bwd[("training shape", False)]["ms"],
+                    "plain_ms_training_shape": bwd[("training shape", False)]["plain_ms"],
+                    "ms_bench_shape": bwd[("bench shape", False)]["ms"],
+                    "plain_ms_bench_shape": bwd[("bench shape", False)]["plain_ms"],
+                },
+                step_ms={k: v[0] for k, v in times.items()},
+                step_events_ms={k: v[1] for k, v in times.items()}, peak_bytes=peak)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old-source", default=None,
@@ -1413,17 +1802,23 @@ def main() -> None:
     demoed = demo_path(dev, card, (peak_bw, peak_flops))
     max_err, max_rel = max(max_err, demoed["max_abs_err"]), max(max_rel, demoed["max_rel_err"])
 
-    # ---- 10. result ----
+    # ---- 10. train path ----
+    trained = train_path(dev, card, (peak_bw, peak_flops))
+    max_err, max_rel = max(max_err, trained["max_abs_err"]), max(max_rel, trained["max_rel_err"])
+
+    # ---- 11. result ----
     kernels = [{
         "name": "photo_reduce",
         "route": "cuda",
         "source": "sage_slam_tpu_torch/ops/csrc/photo_reduce.cu",
         "replaces": "sage_slam_tpu/ops/pallas_kernels.py:118",
         "launches": (launches["photo_reduce"] + mapped["launches"] + slammed["launches"]
-                     + looped["launches"] + looped["driver_launches"] + demoed["launches"]),
+                     + looped["launches"] + looped["driver_launches"] + demoed["launches"]
+                     + trained["launches"]),
         "launches_by_path": {"run_ba": launches["photo_reduce"], "mapper": mapped["launches"],
                              "slam": slammed["launches"], "loop": looped["launches"],
-                             "driver": looped["driver_launches"], "demo": demoed["launches"]},
+                             "driver": looped["driver_launches"], "demo": demoed["launches"],
+                             "train": trained["launches"]},
         "max_abs_err": max_err,
         "max_rel_err": max_rel,
         "matched": True,
@@ -1438,6 +1833,10 @@ def main() -> None:
         "slam_shape": slammed["shape"],
         "loop_shape": looped["shape"],
         "demo_shape": demoed["shape"],
+        "train_shape": {k: trained[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                                                 "bound_by")},
+        "backward": trained["backward"],
+        "train_step_ms": trained["step_ms"],
     }]
     if run_old:
         kernels[0]["earlier_ms"] = old_ms

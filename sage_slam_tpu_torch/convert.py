@@ -10,10 +10,12 @@ them with ``jax.random.permutation``, which torch cannot reproduce.
 
 Vocabularies (``vocabulary_from_numpy``) and verified loops
 (``loop_info_from_numpy``) travel the same way, so a test can hand the JAX
-system's loops to the port. Network weights too: ``depth_params_from_numpy`` and
-``feature_params_from_numpy`` take the JAX param tree (nested dicts and
-lists of arrays) and fill the port's modules, whose parameter names are the
-tree's paths joined by dots.
+system's loops to the port. Network weights too: ``depth_params_from_numpy``,
+``feature_params_from_numpy`` and ``disc_params_from_numpy`` take the JAX
+param tree (nested dicts and lists of arrays) and fill the port's modules,
+whose parameter names are the tree's paths joined by dots;
+``train_params_from_numpy`` carries a whole training state's params and
+``batch_from_numpy`` a training batch.
 
 Tensors go to the card unless ``device="cpu"`` is passed; without CUDA a
 call that did not ask for the CPU raises (device.resolve_device).
@@ -161,6 +163,43 @@ def feature_params_from_numpy(params, cfg=None, device=None):
     from .models.feature_network import FeatureNetConfig, FeatureNetwork
 
     return _load_params(FeatureNetwork(cfg or FeatureNetConfig()), params, device)
+
+
+def disc_params_from_numpy(params, cfg=None, device=None):
+    """A Discriminator carrying the JAX discriminator's params."""
+    from .training.discriminator import DiscConfig, Discriminator
+
+    return _load_params(Discriminator(cfg or DiscConfig()), params, device)
+
+
+def ba_params_from_numpy(ba, device=None):
+    """The port's BAParams (0-d float32 tensors) from the JAX BAParams or a
+    mapping with its field names."""
+    from .training.diff_ba import BAParams
+
+    dev = resolve_device(device)
+    return BAParams(*(_tensor(_field(ba, name), dev).reshape(()) for name in BAParams._fields))
+
+
+def train_params_from_numpy(params, depth_cfg=None, feat_cfg=None, disc_cfg=None, device=None):
+    """The trainer's params dict from the JAX trainer's (depth, feat, ba,
+    log_sigma, disc as numpy trees); every leaf requires grad."""
+    dev = resolve_device(device)
+    ba = ba_params_from_numpy(params["ba"], dev)
+    return {
+        "depth": depth_params_from_numpy(params["depth"], depth_cfg, dev),
+        "feat": feature_params_from_numpy(params["feat"], feat_cfg, dev),
+        "ba": type(ba)(*(t.requires_grad_(True) for t in ba)),
+        "log_sigma": _tensor(params["log_sigma"], dev).reshape(()).requires_grad_(True),
+        "disc": disc_params_from_numpy(params["disc"], disc_cfg, dev),
+    }
+
+
+def batch_from_numpy(batch, device=None) -> dict:
+    """A training batch (the JAX triplet_to_batch dict) as tensors: integer
+    arrays int64, the rest float32."""
+    dev = resolve_device(device)
+    return {k: _tensor(v, dev) for k, v in batch.items()}
 
 
 def frame_from_numpy(fr, device=None):

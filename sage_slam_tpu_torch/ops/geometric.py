@@ -14,7 +14,8 @@ Hessian block layout (dim 14+2CS):
   [12+2CS] scale0, [13+2CS] scale1.
 
 Frame-1 values come from the quad-packed tables of build_frame1_tables,
-rebuilt once per linearization (they depend on code and scale). The
+rebuilt once per linearization (they depend on code and scale); without
+them (training) each edge decodes its frame 1 from the flat tables. The
 per-edge product ``rows @ rows^T`` is a plain batched matmul.
 """
 
@@ -101,6 +102,29 @@ def _quad_base(kf1: GeoKf1, hw: int, w: int):
     return torch.div(kf1.base_hw, hw, rounding_mode="floor") * (hw + w + 1)
 
 
+def _frame1_samples(shared: GeoShared, kf1: GeoKf1, code1, scale1, u1, v1, h: int, w: int):
+    """Frame 1 decoded per edge from the flat tables (the JAX package's
+    _decode_frame1 branch): [scaled depth | scaled grad (2) | raw code
+    jacobian] bilinearly sampled at (u1, v1) -> [E, 3+CS, N]."""
+    hw = h * w
+    e = u1.shape[0]
+    idx = kf1.base_hw.long()[:, None] + torch.arange(hw, device=u1.device)  # [E, HW]
+    bias1 = shared.bias_flat[idx]
+    jac1 = shared.jac_flat[idx]  # [E, HW, CS]
+    unscaled = bias1 + (jac1 @ code1[:, :, None])[..., 0]
+    grad = spatial_grad(unscaled.reshape(e, h, w)).reshape(2, e, hw)
+    s1 = scale1[:, None]
+    rows1 = torch.cat(
+        [(s1 * unscaled)[..., None], (s1[None] * grad).permute(1, 2, 0), jac1], dim=-1
+    )  # [E, HW, 3+CS]
+    packed = interp.pack_quads_level(rows1, w)  # [E, R, 4(3+CS)]
+    r = packed.shape[1]
+    base = torch.arange(e, device=u1.device) * r
+    return interp.bilinear_quad(
+        packed.reshape(e * r, -1), u1, v1, w, h, base
+    ).transpose(-1, -2)
+
+
 def _require(table, name):
     if table is None:
         raise ValueError(
@@ -125,8 +149,9 @@ def geometric_jac_error(
     eps: float,
 ):
     """-> (AtA [E, D, D], Atb [E, D], error [E], n_inliers [E]),
-    D = 14+2CS."""
-    packed_full = _require(shared.packed_full, "packed_full")
+    D = 14+2CS. Without ``shared.packed_full`` each edge decodes its frame
+    1 from the flat tables (the training path). ``factor_weight`` may be a
+    tensor carrying a graph."""
     cs = shared.jac_flat.shape[-1]
     h, w = cam.height, cam.width
     hw = h * w
@@ -134,14 +159,18 @@ def geometric_jac_error(
     depth0, jac_cm0, homo_cm, rh, x1, pos, u1, v1 = _warp_project_cm(
         p0, p1, code0, scale0, kf0, shared, cam, eps
     )
-    cw = packed_full.shape[0] // 4
-    rowv, wts = interp.quad_gather_cols(
-        packed_full, u1, v1, w, h, _quad_base(kf1, hw, w)
-    )
-    v = interp.combine_quad_cm(rowv, wts, 3 + cs, cw)  # [E, 3+CS, N]
-    if cw == 3 + cs + 1:
-        within = interp.quad_nearest_select_cm(rowv, u1, v1, w, h, 3 + cs, cw)
+    if shared.packed_full is not None:
+        cw = shared.packed_full.shape[0] // 4
+        rowv, wts = interp.quad_gather_cols(
+            shared.packed_full, u1, v1, w, h, _quad_base(kf1, hw, w)
+        )
+        v = interp.combine_quad_cm(rowv, wts, 3 + cs, cw)  # [E, 3+CS, N]
+        if cw == 3 + cs + 1:
+            within = interp.quad_nearest_select_cm(rowv, u1, v1, w, h, 3 + cs, cw)
+        else:
+            within = interp.nearest_flat(shared.mask_flat, u1, v1, w, h)
     else:
+        v = _frame1_samples(shared, kf1, code1, scale1, u1, v1, h, w)
         within = interp.nearest_flat(shared.mask_flat, u1, v1, w, h)
     d1 = v[:, 0]
     g1x, g1y = v[:, 1], v[:, 2]

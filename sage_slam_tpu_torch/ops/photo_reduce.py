@@ -38,6 +38,13 @@ ctypes call.
 build or the launch fails; it never falls back) and runs
 ``photo_reduce_ref`` for CPU tensors. ``photo_reduce.launches`` counts
 kernel launches.
+
+Training differentiates through the reduce. On CUDA tensors that carry a
+graph the launch goes through ``PhotoReduceFn``, whose backward is written
+in closed form (``photo_reduce_backward``: one batched S [Kx | Ky] product
+and elementwise passes over levels and channels, torch ops on the card;
+the TPU side has none, XLA differentiates photo_reduce_xla there).
+``photo_reduce.backward_calls`` counts its calls.
 """
 
 from __future__ import annotations
@@ -56,7 +63,7 @@ TILE_POINTS = 64  # points per tile (csrc/photo_reduce.cu TN)
 def photo_reduce_ref(fgs, f0_cm, gate, kx, ky, weights, ratios):
     """Plain PyTorch reduce, a line-for-line port of photo_reduce_xla
     batched over E -> un-normalised (ata [E, dim, dim], atb [E, dim],
-    err [E], n_inl [E])."""
+    err [E], n_inl [E]). Level weights that are tensors stay in the graph."""
     c = f0_cm.shape[-2]
     gate2 = gate * gate
     zero = torch.zeros_like(gate)
@@ -68,7 +75,8 @@ def photo_reduce_ref(fgs, f0_cm, gate, kx, ky, weights, ratios):
         gx = fg[:, c : 2 * c]
         gy = fg[:, 2 * c :]
         d = f0_cm[:, lvl] - f1
-        wl = float(weights[lvl])
+        wl = weights[lvl]
+        wl = wl if isinstance(wl, torch.Tensor) else float(wl)
         rx, ry = ratios[lvl]
         gxx = gxx + (wl * rx * rx) * torch.sum(gx * gx, dim=1)
         gxy = gxy + (wl * rx * ry) * torch.sum(gx * gy, dim=1)
@@ -174,20 +182,12 @@ def _check_inputs(fgs, f0_cm, gate, kx, ky, weights, ratios):
     return e, lv, c, n, dim
 
 
-def photo_reduce(fgs, f0_cm, gate, kx, ky, weights, ratios):
-    """Fused photometric reduce over all edges -> un-normalised
-    (ata [E, dim, dim], atb [E, dim], err [E], n_inl [E]).
-
-    fgs [E, L, 3C, N] target samples (rows f1 | gx | gy), f0_cm
-    [E, L, C, N] source features, gate [E, N], kx, ky [E, dim, N] K-rows,
-    all float32; weights: per-level weights (a config tuple may be longer
-    than L); ratios: one (rx, ry) per level. CUDA tensors go to the
-    kernel, CPU tensors to photo_reduce_ref."""
-    e, lv, c, n, dim = _check_inputs(fgs, f0_cm, gate, kx, ky, weights, ratios)
-    if fgs.device.type == "cpu":
-        return photo_reduce_ref(fgs, f0_cm, gate, kx, ky, weights, ratios)
-    if fgs.device.type != "cuda":
-        raise ValueError(f"photo_reduce: unsupported device {fgs.device}")
+def _launch(fgs, f0_cm, gate, kx, ky, host_weights, ratios):
+    """One K1 launch on CUDA tensors (host_weights: L floats) -> views of
+    (ata, atb, err, n_inl). Raises if the shapes exceed the kernel's limits
+    or the launch fails."""
+    e, lv, c3, n = fgs.shape
+    dim = kx.shape[1]
     if lv > MAX_LEVELS or dim > MAX_DIM:
         raise ValueError(
             f"photo_reduce kernel: L={lv} (max {MAX_LEVELS}), dim={dim} (max {MAX_DIM})"
@@ -198,20 +198,21 @@ def photo_reduce(fgs, f0_cm, gate, kx, ky, weights, ratios):
     dev = fgs.device
     if dev.index != torch.cuda.current_device():  # the C launcher uses the current card
         with torch.cuda.device(dev):
-            return photo_reduce(fgs, f0_cm, gate, kx, ky, weights, ratios)
+            return _launch(fgs, f0_cm, gate, kx, ky, host_weights, ratios)
     lib = _library()
     splits = num_splits(n, e, _slots(dev.index))
     # one buffer: the padded result [E, PAD, PAD], then the splits' partials
     buf = torch.empty((e * (1 + splits), PAD, PAD), dtype=torch.float32, device=dev)
     host = (ctypes.c_float * (3 * lv))(
-        *[float(weights[i]) for i in range(lv)],
+        *host_weights[:lv],
         *[float(r[0]) for r in ratios],
         *[float(r[1]) for r in ratios],
     )
     stream = torch.cuda.current_stream(dev).cuda_stream
     status = lib.photo_reduce_launch(
         fgs.data_ptr(), f0_cm.data_ptr(), gate.data_ptr(), kx.data_ptr(), ky.data_ptr(),
-        buf.data_ptr() + 4 * e * PAD * PAD, buf.data_ptr(), e, lv, c, n, dim, splits, host, stream,
+        buf.data_ptr() + 4 * e * PAD * PAD, buf.data_ptr(), e, lv, c3 // 3, n, dim, splits, host,
+        stream,
     )
     if status != 0:
         _raise_cuda("launch", status)
@@ -219,4 +220,159 @@ def photo_reduce(fgs, f0_cm, gate, kx, ky, weights, ratios):
     return unpack_padded(buf[:e], dim)
 
 
+def _host_weights(weights, lv: int):
+    """The first lv level weights as host floats (one device read for a
+    tensor)."""
+    if isinstance(weights, torch.Tensor):
+        return [float(w) for w in weights[:lv].detach().cpu().tolist()]
+    return [float(w) for w in weights[:lv]]
+
+
+def photo_reduce_backward(fgs, f0_cm, gate, kx, ky, weights, ratios,
+                          g_ata, g_atb, g_err, g_n, need=(True,) * 6):
+    """Closed-form cotangents of the reduce -> (d fgs, d f0_cm, d gate,
+    d kx, d ky, d weights [L]); an entry is None where ``need`` says so.
+    Output cotangents that are None count as zeros.
+
+    With S = A' + A'^T (A', a', e', n' the cotangents of ata, atb, err,
+    n_inl), per point:
+      d kx = gxx S kx + gxy S ky + a' hx,   d ky = gxy S kx + gyy S ky + a' hy,
+      d gxx = kx^T S kx / 2,  d gxy = kx^T S ky,  d gyy = ky^T S ky / 2,
+      d hx = a'^T kx,  d hy = a'^T ky,
+    (gxx..hy gated by gate^2), then elementwise passes over all levels and
+    channels at once give fgs, f0_cm, gate^2 and the level weights. Torch
+    ops on the inputs' device: one batched S [kx | ky] product."""
+    e, lv, c3, n = fgs.shape
+    c = c3 // 3
+    dim = kx.shape[1]
+    zero_e = fgs.new_zeros((e,))
+    g_ata = fgs.new_zeros((e, dim, dim)) if g_ata is None else g_ata
+    g_atb = fgs.new_zeros((e, dim)) if g_atb is None else g_atb
+    g_err = zero_e if g_err is None else g_err
+    g_n = zero_e if g_n is None else g_n
+    w = weights if isinstance(weights, torch.Tensor) else torch.tensor(
+        [float(x) for x in weights[:lv]], dtype=fgs.dtype, device=fgs.device)
+    w = w.detach()[:lv].to(fgs.dtype)[None, :, None]  # [1, L, 1]
+    rx = fgs.new_tensor([float(r[0]) for r in ratios])[None, :, None]
+    ry = fgs.new_tensor([float(r[1]) for r in ratios])[None, :, None]
+    gate2 = gate * gate
+
+    # per-level channel sums [E, L, N] of the gradient Gram, gradient x
+    # residual and residual energy; their weighted level sums (ungated)
+    fg = fgs.view(e, lv, 3, c, n)
+    gx, gy = fg[:, :, 1], fg[:, :, 2]
+    d = f0_cm - fg[:, :, 0]
+    sxx, sxy, syy = (gx * gx).sum(2), (gx * gy).sum(2), (gy * gy).sum(2)
+    sxd, syd, sdd = (gx * d).sum(2), (gy * d).sum(2), (d * d).sum(2)
+    gxx = (w * rx * rx * sxx).sum(1)
+    gxy = (w * rx * ry * sxy).sum(1)
+    gyy = (w * ry * ry * syy).sum(1)
+    hx = (w * rx * sxd).sum(1)
+    hy = (w * ry * syd).sum(1)
+
+    s = g_ata + g_ata.transpose(-1, -2)
+    sk = s @ torch.cat([kx, ky], dim=-1)  # [E, dim, 2N]
+    skx, sky = sk[..., :n], sk[..., n:]
+    a = g_atb[..., None]
+    d_gxx = 0.5 * torch.sum(kx * skx, dim=1)  # cotangents of the gated terms
+    d_gxy = torch.sum(kx * sky, dim=1)
+    d_gyy = 0.5 * torch.sum(ky * sky, dim=1)
+    d_hx = torch.sum(a * kx, dim=1)
+    d_hy = torch.sum(a * ky, dim=1)
+
+    d_kx = d_ky = d_gate = d_fgs = d_f0 = d_w = None
+    if need[3]:
+        d_kx = (gate2 * gxx)[:, None] * skx + (gate2 * gxy)[:, None] * sky + a * (gate2 * hx)[:, None]
+    if need[4]:
+        d_ky = (gate2 * gxy)[:, None] * skx + (gate2 * gyy)[:, None] * sky + a * (gate2 * hy)[:, None]
+    if need[2]:
+        dd = (w * sdd).sum(1)
+        d_g2 = (gxx * d_gxx + gxy * d_gxy + gyy * d_gyy + hx * d_hx + hy * d_hy
+                + g_err[:, None] * dd + g_n[:, None])
+        d_gate = 2.0 * gate * d_g2
+    # cotangents [E, 1, N] of the ungated per-level terms
+    r_xx, r_xy, r_yy = (gate2 * d_gxx)[:, None], (gate2 * d_gxy)[:, None], (gate2 * d_gyy)[:, None]
+    r_hx, r_hy = (gate2 * d_hx)[:, None], (gate2 * d_hy)[:, None]
+    r_dd = (gate2 * g_err[:, None])[:, None]
+    if need[0] or need[1]:
+        lvl_d = lambda t: t[:, :, None]  # noqa: E731  [E, L, N] -> [E, L, 1, N]
+        d_d = lvl_d(w * rx * r_hx) * gx + lvl_d(w * ry * r_hy) * gy + lvl_d(2.0 * w * r_dd) * d
+        if need[1]:
+            d_f0 = d_d
+        if need[0]:
+            d_gx = lvl_d(w * rx * 2.0 * rx * r_xx) * gx + lvl_d(w * rx * ry * r_xy) * gy + lvl_d(w * rx * r_hx) * d
+            d_gy = lvl_d(w * ry * rx * r_xy) * gx + lvl_d(w * ry * 2.0 * ry * r_yy) * gy + lvl_d(w * ry * r_hy) * d
+            d_fgs = torch.stack([-d_d, d_gx, d_gy], dim=2).reshape(e, lv, c3, n)
+    if need[5]:
+        d_w = (rx * rx * r_xx * sxx + rx * ry * r_xy * sxy + ry * ry * r_yy * syy
+               + rx * r_hx * sxd + ry * r_hy * syd + r_dd * sdd).sum((0, 2))
+    return d_fgs, d_f0, d_gate, d_kx, d_ky, d_w
+
+
+class PhotoReduceFn(torch.autograd.Function):
+    """The reduce with its closed-form backward (photo_reduce_backward).
+    The forward launches K1 on CUDA tensors and runs photo_reduce_ref
+    (without a graph) on CPU tensors, so the backward can be held against
+    autograd through the plain version on the CPU. ``weights`` may be a
+    tensor [L] (its cotangent is returned) or a sequence of floats; the
+    kernel takes ``host_weights`` (floats, read from ``weights`` when
+    None). ``ratios`` are static."""
+
+    @staticmethod
+    def forward(ctx, fgs, f0_cm, gate, kx, ky, weights, ratios, host_weights=None):
+        if fgs.device.type == "cuda":
+            hw = host_weights if host_weights is not None else _host_weights(weights, fgs.shape[1])
+            out = _launch(fgs, f0_cm, gate, kx, ky, hw, ratios)
+            out = tuple(t.clone() for t in out)  # own storage, not views of one buffer
+        else:
+            out = photo_reduce_ref(fgs, f0_cm, gate, kx, ky, weights, ratios)
+        ctx.ratios = ratios
+        ctx.weights_is_tensor = isinstance(weights, torch.Tensor)
+        ctx.weights = None if ctx.weights_is_tensor else weights
+        ctx.save_for_backward(fgs, f0_cm, gate, kx, ky,
+                              weights if ctx.weights_is_tensor else None)
+        return out
+
+    @staticmethod
+    def backward(ctx, g_ata, g_atb, g_err, g_n):
+        fgs, f0_cm, gate, kx, ky, w_t = ctx.saved_tensors
+        weights = w_t if ctx.weights_is_tensor else ctx.weights
+        need = tuple(ctx.needs_input_grad[:6])
+        grads = photo_reduce_backward(fgs, f0_cm, gate, kx, ky, weights, ctx.ratios,
+                                      g_ata, g_atb, g_err, g_n, need)
+        photo_reduce.backward_calls += 1
+        d_w = grads[5]
+        if d_w is not None and w_t is not None and w_t.shape[0] > d_w.shape[0]:
+            d_w = torch.cat([d_w, d_w.new_zeros(w_t.shape[0] - d_w.shape[0])])
+        return (*grads[:5], d_w, None, None)
+
+
+def photo_reduce(fgs, f0_cm, gate, kx, ky, weights, ratios, host_weights=None):
+    """Fused photometric reduce over all edges -> un-normalised
+    (ata [E, dim, dim], atb [E, dim], err [E], n_inl [E]).
+
+    fgs [E, L, 3C, N] target samples (rows f1 | gx | gy), f0_cm
+    [E, L, C, N] source features, gate [E, N], kx, ky [E, dim, N] K-rows,
+    all float32; weights: per-level weights, a sequence of floats (a config
+    tuple may be longer than L) or a tensor that may carry a graph;
+    ratios: one (rx, ry) per level; host_weights: the weights as floats,
+    so that the kernel's launch reads nothing from the card.
+
+    CUDA tensors go to the kernel: inside a graph through PhotoReduceFn,
+    whose backward is closed form, else straight to the launch. CPU tensors
+    go to photo_reduce_ref, under autograd."""
+    _check_inputs(fgs, f0_cm, gate, kx, ky, weights, ratios)
+    if fgs.device.type == "cpu":
+        return photo_reduce_ref(fgs, f0_cm, gate, kx, ky, weights, ratios)
+    if fgs.device.type != "cuda":
+        raise ValueError(f"photo_reduce: unsupported device {fgs.device}")
+    w_graph = isinstance(weights, torch.Tensor) and weights.requires_grad
+    if torch.is_grad_enabled() and (w_graph or any(
+            t.requires_grad for t in (fgs, f0_cm, gate, kx, ky))):
+        return PhotoReduceFn.apply(fgs, f0_cm, gate, kx, ky, weights, ratios, host_weights)
+    hw = host_weights if host_weights is not None else _host_weights(weights, fgs.shape[1])
+    return _launch(fgs, f0_cm, gate, kx, ky, hw, ratios)
+
+
 photo_reduce.launches = 0
+photo_reduce.backward_calls = 0

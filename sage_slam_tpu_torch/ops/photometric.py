@@ -55,6 +55,17 @@ class PhotoShared(NamedTuple):
     dense_feat: tuple = ()  # per dense level: [K, C, M_l]
 
 
+def single_frame_shared(bias_flat, jac_flat, feat_pyr, grad_pyr, mask_flat,
+                        cam_pyr: CameraPyramid | None = None) -> PhotoShared:
+    """One frame's arrays as a K=1 shared table (training, tests). With
+    cam_pyr the gather tables are built here; without, inside each factor
+    evaluation."""
+    if cam_pyr is None:
+        return PhotoShared(bias_flat, jac_flat, feat_pyr, grad_pyr, mask_flat)
+    tables = build_photo_tables(feat_pyr, grad_pyr, mask_flat, cam_pyr)
+    return PhotoShared(bias_flat, jac_flat, feat_pyr, grad_pyr, mask_flat, *tables)
+
+
 class PhotoKf0(NamedTuple):
     """Per-edge source-keyframe data, leading axis E."""
 
@@ -287,6 +298,10 @@ def photometric_error(
 
 
 def _weight_sum(weights, like: torch.Tensor) -> torch.Tensor:
+    """Sum of the level weights: a config tuple of floats, or a tensor,
+    which keeps its graph (learnt weights)."""
+    if isinstance(weights, torch.Tensor):
+        return torch.sum(weights.to(like.dtype))
     return torch.sum(torch.tensor(weights, dtype=like.dtype, device=like.device))
 
 
@@ -386,15 +401,18 @@ def photometric_jac_error(
     weights,
     eps: float,
     soft: bool = False,
+    host_weights=None,
 ):
     """Linearization path -> (AtA [E, 13+CS, 13+CS], Atb [E, 13+CS],
     error [E], n_inliers [E]):
       AtA = Kx^T (gxx Kx + gxy Ky) + Ky^T (gxy Kx + gyy Ky)
-    with gxx/gxy/gyy the level-weighted per-point gradient Gram."""
+    with gxx/gxy/gyy the level-weighted per-point gradient Gram. Learnt
+    weights (a tensor [L]) stay in the graph; ``host_weights`` gives the
+    kernel their float values without a read from the card."""
     fgs, f0_cm, gate, kx, ky = photo_prep(
         p0, p1, code0, scale0, kf0, fr1, shared, cam_pyr, eps, soft=soft
     )
     ata, atb, err_total, n_inl = photo_reduce(
-        fgs, f0_cm, gate, kx, ky, weights, level_ratios(cam_pyr)
+        fgs, f0_cm, gate, kx, ky, weights, level_ratios(cam_pyr), host_weights
     )
     return photo_normalize(ata, atb, err_total, n_inl, weights)

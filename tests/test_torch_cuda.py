@@ -181,3 +181,49 @@ def test_mapping_step_card_matches_cpu(cuda):
     for a, b in ((vg.pose.trans, vc.pose.trans), (vg.pose.rot, vc.pose.rot), (vg.code, vc.code)):
         np.testing.assert_allclose(a[:5].cpu().numpy(), b[:5].numpy(), atol=1e-4)
     np.testing.assert_allclose(vg.scale[:5].cpu().numpy(), vc.scale[:5].numpy(), rtol=1e-4)
+
+
+BACKWARD_CASES = [
+    pytest.param((1, 4, 16, 128, 29), False, id="training-shape-binary"),
+    pytest.param((1, 4, 16, 128, 29), True, id="training-shape-soft"),
+    pytest.param((24, 4, 16, 3072, 29), False, id="bench-binary"),
+    pytest.param((3, 4, 16, 1001, 17), True, id="n1001-dim17-soft"),
+]
+
+
+@pytest.mark.parametrize("shape,soft", BACKWARD_CASES)
+def test_kernel_backward_matches_autograd_through_plain(cuda, shape, soft):
+    """photo_reduce on CUDA tensors that carry a graph launches K1 once and
+    differentiates through PhotoReduceFn's closed form: every input's and
+    the weights' cotangent within 1e-4 of its max |value| of autograd
+    through photo_reduce_ref on the card; fgs, kx and the weights get
+    non-zero gradients."""
+    e, lv, c, n, dim = shape
+    ratios = tuple((0.5**i, 0.5**i) for i in range(lv))
+    ins = [x.to(cuda).requires_grad_(True) for x in _inputs(e, lv, c, n, dim, soft, seed=5)]
+    w = torch.tensor(WEIGHTS[:lv], device=cuda, requires_grad=True)
+    launches, calls = tred.photo_reduce.launches, tred.photo_reduce.backward_calls
+    outs = tred.photo_reduce(*ins, w, ratios)
+    gen = torch.Generator().manual_seed(6)
+    cots = [torch.randn(o.shape, generator=gen).to(cuda) for o in outs]
+    got = torch.autograd.grad(outs, [*ins, w], cots)
+    assert tred.photo_reduce.launches == launches + 1
+    assert tred.photo_reduce.backward_calls == calls + 1
+    ref = torch.autograd.grad(tred.photo_reduce_ref(*ins, w, ratios), [*ins, w], cots)
+    for name, a, b in zip(("fgs", "f0_cm", "gate", "kx", "ky", "weights"), got, ref):
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-4 * scale, name
+    for i in (0, 3, 5):
+        assert float(got[i].abs().max()) > 0
+
+
+def test_kernel_without_a_graph_skips_the_function(cuda):
+    """Under torch.no_grad (the serving path) the wrapper launches K1
+    directly: no graph, no backward."""
+    ins = [x.to(cuda).requires_grad_(True) for x in _inputs(2, 4, 16, 256, 29, False)]
+    ratios = tuple((0.5**i, 0.5**i) for i in range(4))
+    with torch.no_grad():
+        out = tred.photo_reduce(*ins, WEIGHTS, ratios)
+    assert all(o.grad_fn is None for o in out)
+    out = tred.photo_reduce(*ins, WEIGHTS, ratios)
+    assert all(o.grad_fn is not None for o in out[:3])

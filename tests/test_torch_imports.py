@@ -47,13 +47,18 @@ SLICE_MODULES = [
     "training/__init__.py", "training/export.py", "mapping/serialize.py", "viz/__init__.py",
     "viz/visualizer.py", "viz/warp_display.py", "demo/__init__.py", "demo/run_slam.py",
     "demo/voc_builder.py", "demo/result_viewer.py",
+    # the training slice
+    "training/losses.py", "training/discriminator.py", "training/dataset.py",
+    "training/diff_ba.py", "training/train.py", "ops/photo_reduce.py", "ops/photometric.py",
+    "ops/geometric.py",
 ]
 
 
 @pytest.mark.parametrize("rel", SLICE_MODULES)
 def test_mapper_slice_module_is_guarded(rel):
-    """Every module of the mapper, tracker / frontend, loop / driver and IO /
-    eval / demo slices exists and is among the files the guard above walks."""
+    """Every module of the mapper, tracker / frontend, loop / driver, IO /
+    eval / demo and training slices exists and is among the files the guard
+    above walks."""
     assert ROOT / "sage_slam_tpu_torch" / rel in PORT_FILES
 
 
