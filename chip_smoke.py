@@ -90,7 +90,9 @@ Phases, each of which exits non-zero on failure:
    timing.report(), which gives each thread's solver set-up apart;
 9. demo path: the port's demo CLI, threaded as a user runs it
    (demo/run_slam.run, the body of main, which also returns the system),
-   over eval_artifacts/EVAL.md's 64-frame Bowl3D orbit (DEMO_URL) at
+   over the first 32 frames of eval_artifacts/EVAL.md's 64-frame Bowl3D
+   orbit (DEMO_URL: 31/63 of the orbit, at its per-frame motion; phase 11
+   runs the whole orbit with trained networks) at
    eval_artifacts/slam_config.json's widths (128x160 -> 64x80, CS=FS=16,
    L=4, N=3072, window 8, LoopConfig's own gates, a 32-keyframe store) with
    the networks of net_netcfg.json randomly initialised and the repo's
@@ -140,7 +142,37 @@ Phases, each of which exits non-zero on failure:
    bit for bit; a resume restores epoch 2 and every parameter. Prints ms
    per separate, joint and eval step (host clock and CUDA events) and the
    peak device memory;
-11. a JSON line listing every kernel, then the card line, then the last
+11. eval path: dense and diagnostic eval. (b) demo/make_eval.run, the
+   body of the port's make_eval CLI, at its operating point (128x160 ->
+   64x80, CS=FS=16, N=3072, L=4) with --separate_only, cut in depth only
+   (MAKE_EVAL_CUTS: 4 epochs, 16 triplets, a 90 s training budget), into
+   the git-ignored _runs/make_eval: train, export, vocabulary, the threaded
+   demo over the 64-frame eval orbit, ATE and depth RMSE, TSDF fusion and
+   mesh, fly-through, report.json and EVAL.md. Fails unless K1's launches
+   over the chain equal the demo's mapping LM iterations, every artifact
+   is written and well formed (the TUM files read back, one depth file per
+   keyframe, reconstruction.ply parses with faces indexing its vertices,
+   report.json equals the returned report, EVAL.md names the card), and the
+   exported networks load through the demo's loaders equal to the run's.
+   K1 is held against its plain version and timed at the demo's final
+   window. (a) the chain's 96^3 TSDF volume integrated on the card and on
+   CPU tensors from the same keyframes: tsdf and weight within 1e-5 on the
+   voxels away from a rounding boundary (tsdf.near_rounding_boundary), the
+   flipped voxels counted and held to TSDF_FLIP_SHARE; prints the device ms
+   per integrate (CUDA events) and the volume's bytes; fly_through gives 8
+   lit uint8 frames. (c) eval/error_budget.run's A and C rows over the
+   64-frame orbit of docs/error_budget_r05.json, printed beside that TPU
+   run's rows; finite values, keyframes within 3 of its count, and K1's
+   launches equal the stages' mapping LM iterations. (d) eval/gt_probe at
+   docs/gt_probe_r05_64x80.json's configuration (GT_PROBE: 128x160, 64
+   frames, stride 4, 16 keyframes at exact ground truth): grad_report on
+   the card against the same call on SlamSystem.clone("cpu") within
+   GT_PROBE_GRAD_RTOL per term and variable class, section_report at
+   GT_PROBE_SECTION_STEPS steps, walk_report's 12 rounds printed beside the
+   TPU run's keyframe ATE; K1's launches equal grad_report's
+   linearizations plus the walk's LM iterations; K1 held and timed at the
+   full graph;
+12. a JSON line listing every kernel, then the card line, then the last
    line ``{"ok": true, "device": {...}}``.
 
 Imports neither JAX nor the JAX package.
@@ -342,18 +374,19 @@ def rel_diff(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
 
 
-def reduce_at_path_shape(mapper, cfg, pyr, card: str, peaks, path: str) -> dict:
+def reduce_at_path_shape(mapper, cfg, pyr, card: str, peaks, path: str, window_lo=None) -> dict:
     """K1 on the photometric inputs of the window of a path's final state
-    (the edges incident to its last window_size keyframes), against its
-    plain version, and timed there beside the plain version and the library
-    call. Launches made here are not counted."""
+    (the edges incident to its keyframes from ``window_lo`` on, by default
+    its last window_size keyframes), against its plain version, and timed
+    there beside the plain version and the library call. Launches made here
+    are not counted."""
     from sage_slam_tpu_torch.geometry.se3 import SE3
     from sage_slam_tpu_torch.ops import photo_reduce as pr
     from sage_slam_tpu_torch.ops import photometric
     from sage_slam_tpu_torch.solver import ba
 
     n = mapper.store.num_active
-    lo = max(0, n - cfg.mapper.window_size)
+    lo = max(0, n - cfg.mapper.window_size) if window_lo is None else window_lo
     problem = ba.prepare_problem(
         ba.slice_problem_keyframes(mapper.build_problem(window_lo=lo), n, pyr), pyr)
     v = mapper.store.variables
@@ -971,10 +1004,12 @@ def loop_path(dev, card: str, peaks) -> dict:
 
 
 # phase 9: the demo CLI over eval_artifacts/EVAL.md's Bowl3D orbit at
-# eval_artifacts/slam_config.json's widths; the only cut is the random
-# weights (the trained networks are not in the repo)
-DEMO_URL = ("bowl3d://?num_frames=64&height=128&width=160&seed=0&orbit_radius=0.22&rot_amp=0.25"
-            "&mask_margin=6")
+# eval_artifacts/slam_config.json's widths. The cuts: random weights, and
+# the depth: the orbit's first 32 frames (31/63 of an orbit, so each frame
+# moves as far as in the 64-frame orbit; no revisit), since phase 11 runs
+# the whole orbit through make_eval
+DEMO_URL = ("bowl3d://?num_frames=32&height=128&width=160&seed=0&orbit_radius=0.22&rot_amp=0.25"
+            "&mask_margin=6&orbits=0.49206349206349204")
 DEMO_CONFIG = "eval_artifacts/slam_config.json"
 DEMO_NETCFG = "eval_artifacts/net_netcfg.json"
 DEMO_RUN_DIR = "_runs/demo"
@@ -1005,7 +1040,7 @@ def check_tum(path: str, trajectory, label: str) -> None:
     if d_ts > 5.0001e-7 or d_t > 5.0001e-9 or d_r > 1e-7:
         fail(f"{label}: read_tum differs from the system beyond the printed precision "
              f"(timestamps {d_ts:.3g}, translations {d_t:.3g}, rotations {d_r:.3g})")
-    say(f"demo path: {os.path.basename(path)} read back: {len(back)} poses, max |d| timestamps {d_ts:.3g}, "
+    say(f"{label}: read back: {len(back)} poses, max |d| timestamps {d_ts:.3g}, "
         f"translations {d_t:.3g}, rotations {d_r:.3g}: ok")
 
 
@@ -1559,6 +1594,313 @@ def train_path(dev, card: str, peaks) -> dict:
                 step_events_ms={k: v[1] for k, v in times.items()}, peak_bytes=peak)
 
 
+# phase 11: dense and diagnostic eval. (b) demo/make_eval's chain at its
+# operating point into the git-ignored _runs/make_eval, cut in depth only
+# (MAKE_EVAL_CUTS); (a) its TSDF volume on the card against the CPU;
+# (c) eval/error_budget's A and C rows over the 64-frame orbit of
+# docs/error_budget_r05.json; (d) eval/gt_probe at docs/gt_probe_r05_64x80.json's
+# configuration (128x160, 64 frames, stride 4: 16 keyframes)
+MAKE_EVAL_RUN_DIR = "_runs/make_eval"
+MAKE_EVAL_CUTS = ["--epochs", "4", "--train_triplets", "16", "--train_budget_s", "90"]
+MAKE_EVAL_FILES = ("net_depth.npz", "net_feat.npz", "net_netcfg.json", "bow_voc.npz", "reconstruction.ply",
+                   "report.json", "EVAL.md")
+TSDF_FLIP_SHARE = 1e-3  # voxels that may differ next to a rounding boundary
+ERROR_BUDGET_JAX = "docs/error_budget_r05.json"  # a TPU run's accuracy, printed beside, not a target
+ERROR_BUDGET_STAGES = ("A_tracker_oracle", "C_refine_oracle")
+GT_PROBE_JAX = "docs/gt_probe_r05_64x80.json"
+GT_PROBE = dict(num_frames=64, height=128, width=160, stride=4, back=2)
+GT_PROBE_SECTION_STEPS = 5
+# grad_report on the card against the CPU: float32 roundoff of the
+# photometric sums over 16 keyframes (other sum orders on the card)
+GT_PROBE_GRAD_RTOL = 1e-4
+
+
+def read_ply(path: str):
+    """(vertices [V, 3], faces [F, 3]) of an ASCII PLY written by save_ply;
+    fails on a malformed file."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    if lines[:2] != ["ply", "format ascii 1.0"] or "end_header" not in lines:
+        fail(f"{path}: not an ASCII PLY")
+    head = lines[: lines.index("end_header")]
+    nv = int(next(ln.split()[2] for ln in head if ln.startswith("element vertex")))
+    nf = int(next(ln.split()[2] for ln in head if ln.startswith("element face")))
+    body = lines[len(head) + 1:]
+    if len(body) != nv + nf:
+        fail(f"{path}: {len(body)} body lines for {nv} vertices and {nf} faces")
+    verts = np.array([[float(x) for x in ln.split()] for ln in body[:nv]], np.float32).reshape(-1, 3)
+    faces = np.array([[int(x) for x in ln.split()] for ln in body[nv:]], np.int64).reshape(-1, 4)
+    if not (faces[:, 0] == 3).all():
+        fail(f"{path}: a face is not a triangle")
+    return verts, faces[:, 1:]
+
+
+def make_eval_chain(dev, card: str) -> dict:
+    """Phase 11(b): make_eval.run end to end and its artifacts checked."""
+    import shutil
+
+    from sage_slam_tpu_torch.demo import make_eval
+    from sage_slam_tpu_torch.loop import vocabulary
+    from sage_slam_tpu_torch.models import depth_network, feature_network
+    from sage_slam_tpu_torch.models.partial_unet import load_torch_state_dict
+    from sage_slam_tpu_torch.ops import photo_reduce as pr
+    from sage_slam_tpu_torch.training.export import load_net_configs
+
+    out = os.path.join(ROOT, MAKE_EVAL_RUN_DIR)
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pr.photo_reduce.launches = 0
+    t0 = time.perf_counter()
+    report, system = make_eval.run(["--out_dir", out, "--separate_only", *MAKE_EVAL_CUTS])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = pr.photo_reduce.launches
+    iters = system.mapper.step_iters_total
+    peak = torch.cuda.max_memory_allocated()
+    tr, sl, at, dp, me = (report[k] for k in ("training", "slam", "ate", "depth", "mesh"))
+    say(f"make_eval [{card}]: {' '.join(MAKE_EVAL_CUTS)} --separate_only into {MAKE_EVAL_RUN_DIR}, "
+        f"{run_s:.3f} s in all (report {report['wall_total_s']} s); training {tr['steps']} steps in "
+        f"{tr['wall_s']} s, exported epoch {tr['best_epoch']} of {tr['epochs']}, eval depth "
+        f"{tr['eval_first']['depth']} -> {tr['eval_best']['depth']}, rr {tr['eval_first']['rr']} -> "
+        f"{tr['eval_best']['rr']}; demo {sl['frames']} frames at {sl['fps']} frames/s, {sl['keyframes']} "
+        f"keyframes, {sl['global_loops']} global loops, loop gate rejections "
+        f"{len(system.loop_rejections)}, refine {sl['refine_iterations']} LM iterations; frame Sim3-ATE "
+        f"{at['sim3_pct_of_span']}% of the span {at['trajectory_span']}, keyframe {at['kf_sim3_pct_of_span']}%; "
+        f"keyframe depth RMSE mean {dp['mean_kf_rmse']} max {dp['max_kf_rmse']}; mesh {me['vertices']} "
+        f"vertices {me['faces']} faces; mapping LM iterations {iters}, photo_reduce launches {launches}; "
+        f"peak device memory {peak} bytes; backend line {report['operating_point']['backend']!r}")
+    if launches == 0 or launches != iters:
+        fail(f"make_eval: photo_reduce launched {launches} times for {iters} mapping LM iterations")
+    if report["operating_point"]["backend"] != card:
+        fail(f"make_eval: backend {report['operating_point']['backend']!r}, the card is {card!r}")
+    missing = [f for f in MAKE_EVAL_FILES if not os.path.isfile(os.path.join(out, f))]
+    if missing:
+        fail(f"make_eval: {missing} not written")
+    run_dir = os.path.join(out, "slam_run")
+    n = system.store.num_active
+    if sl["frames"] != make_eval.eval_orbit(64)["num_frames"] or n < 2 or dp["keyframes"] != n:
+        fail(f"make_eval: {sl['frames']} frames, {n} keyframes, {dp['keyframes']} depth rows")
+    for name, traj in (("trajectory.txt", system.finalized_trajectory()),
+                       ("keyframe_trajectory.txt", system.keyframe_trajectory())):
+        check_tum(os.path.join(run_dir, name), traj, f"make_eval {name}")
+    npys = sorted(f for f in os.listdir(run_dir) if f.startswith("kf_") and f.endswith("_depth.npy"))
+    if npys != [f"kf_{i:04d}_depth.npy" for i in range(n)]:
+        fail(f"make_eval: keyframe depth files {npys} for {n} keyframes")
+    values = [at["sim3_rmse"], at["kf_sim3_rmse"], dp["mean_kf_rmse"], dp["max_kf_rmse"]]
+    if not np.isfinite(values).all():
+        fail(f"make_eval: a non-finite ATE or depth RMSE {values}")
+    verts, faces = read_ply(os.path.join(out, "reconstruction.ply"))
+    if len(faces) == 0 or faces.max() >= len(verts) or (len(verts), len(faces)) != (me["vertices"], me["faces"]):
+        fail(f"make_eval: reconstruction.ply has {len(verts)} vertices and {len(faces)} faces (max index "
+             f"{faces.max() if len(faces) else None}); the report says {me}")
+    with open(os.path.join(out, "report.json")) as f:
+        if json.load(f) != report:
+            fail("make_eval: report.json differs from the returned report")
+    with open(os.path.join(out, "EVAL.md")) as f:
+        md = f.read()
+    if f"Backend: **{card}**" not in md or "python -m sage_slam_tpu_torch.demo.make_eval" not in md:
+        fail("make_eval: EVAL.md lacks the card's backend line or the port's regenerate line")
+    voc = vocabulary.load_npz_vocabulary(os.path.join(out, "bow_voc.npz"), device=dev)
+    d_cfg, f_cfg = load_net_configs(os.path.join(out, "net_netcfg.json"))
+    dnet = depth_network.init_network(torch.Generator().manual_seed(0), d_cfg)
+    fnet = feature_network.init_network(torch.Generator().manual_seed(0), f_cfg)
+    load_torch_state_dict(dnet, dict(np.load(os.path.join(out, "net_depth.npz"))))
+    load_torch_state_dict(fnet, dict(np.load(os.path.join(out, "net_feat.npz"))))
+    for a, b in ((dnet, system.mapper.depth_net), (fnet, system.mapper.feat_net)):
+        sb = b.state_dict()
+        if not all(torch.equal(v, sb[k].cpu()) for k, v in a.state_dict().items()):
+            fail("make_eval: the exported networks, loaded as the demo loads them, differ from the run's")
+    say(f"make_eval: {', '.join(MAKE_EVAL_FILES)}, slam_run/ (TUM files read back, {n} depth files) and "
+        f"fly_through/ written; reconstruction.ply parses ({len(verts)} vertices, {len(faces)} faces, max "
+        f"index {faces.max()}); the exported networks load through load_net_configs and "
+        f"load_torch_state_dict equal to the run's; the {voc.num_words}-word vocabulary loads: ok")
+    return dict(report=report, system=system, launches=launches, run_dir=run_dir)
+
+
+def tsdf_hold(kf, dev, card: str) -> dict:
+    """Phase 11(a): make_eval's volume on the card against the same inputs
+    on CPU tensors; the device time per integrate; the fly-through."""
+    from sage_slam_tpu_torch.demo import make_eval
+    from sage_slam_tpu_torch.eval import tsdf
+    from sage_slam_tpu_torch.geometry.se3 import SE3
+
+    dims = (96, 96, 96)
+    vol = make_eval.fuse(kf, dims, device=dev)
+    ref = make_eval.fuse(kf, dims, device="cpu")
+    poses = [SE3(torch.as_tensor(r, dtype=torch.float32), torch.as_tensor(t, dtype=torch.float32))
+             for r, t in kf.poses]
+    near = np.zeros(dims, bool)
+    for p, d in zip(poses, kf.depths):
+        near |= tsdf.near_rounding_boundary(ref, d, p, kf.cam)
+    t, w = vol.tsdf.cpu().numpy(), vol.weight.cpu().numpy()
+    rt, rw = ref.tsdf.numpy(), ref.weight.numpy()
+    far = ~near
+    d_t, d_w = float(np.abs(t - rt)[far].max()), float(np.abs(w - rw)[far].max())
+    flipped = int(((np.abs(t - rt) > 1e-5) | (np.abs(w - rw) > 1e-5)).sum())
+    if d_t > 1e-5 or d_w > 1e-5:
+        fail(f"tsdf: card and CPU differ by {d_t:.3g} (tsdf) and {d_w:.3g} (weight) away from a rounding boundary")
+    if flipped > TSDF_FLIP_SHARE * t.size:
+        fail(f"tsdf: {flipped} of {t.size} voxels flipped (limit {TSDF_FLIP_SHARE:.1%})")
+    # device ms per integrate (CUDA events) over the keyframes, inputs on the card
+    lo, voxel = make_eval.fusion_bounds(kf, dims)
+    on_card = [(SE3(p.rot.to(dev), p.trans.to(dev)), torch.as_tensor(d, device=dev)) for p, d in zip(poses, kf.depths)]
+    mask = torch.as_tensor(kf.mask, device=dev)
+    runs = []
+    for _ in range(2):  # the first is warm-up
+        v = tsdf.TSDFVolume.create(lo, dims, voxel, device=dev)
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for p, d in on_card:
+            v = tsdf.integrate(v, d, mask, p, kf.cam)
+        stop.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(stop) / len(on_card))
+    nbytes = sum(x.numel() * x.element_size() for x in (vol.tsdf, vol.weight, vol.origin))
+    verts, faces = tsdf.marching_tetrahedra(vol)
+    if len(faces) == 0 or faces.max() >= len(verts):
+        fail(f"tsdf: the card volume's mesh has {len(verts)} vertices and {len(faces)} faces")
+    fly = tsdf.fly_through(vol, kf.cam, poses, num_frames=8, point_size=2)
+    h, w_ = kf.cam.height, kf.cam.width
+    lit = [int((fr > 0).any(-1).sum()) for fr in fly]
+    if len(fly) != 8 or any(fr.shape != (h, w_, 3) or fr.dtype != np.uint8 for fr in fly) or min(lit) == 0:
+        fail(f"tsdf: fly_through gave {len(fly)} frames, lit pixels {lit}")
+    say(f"tsdf [{card}]: {len(kf.depths)} keyframes into {dims} voxels of {voxel:.6f} on the card against "
+        f"the CPU: max |d| {d_t:.3g} (tsdf), {d_w:.3g} (weight) on the {int(far.sum())} voxels away from a "
+        f"rounding boundary; {flipped} voxels flipped of {t.size} ({flipped / t.size:.5%}; {int(near.sum())} "
+        f"near a boundary): ok; integrate {runs[1]:.4f} ms per keyframe on the card (CUDA events, after a "
+        f"warm-up at {runs[0]:.4f}); volume {nbytes} bytes; mesh {len(verts)} vertices {len(faces)} faces; "
+        f"fly_through 8 frames {h}x{w_}x3 uint8, lit pixels {lit}: ok")
+    return dict(ms=runs[1], flipped=flipped, voxels=int(t.size), bytes=nbytes)
+
+
+def error_budget_rows(dev, card: str) -> dict:
+    """Phase 11(c): the A and C rows over docs/error_budget_r05.json's orbit."""
+    from sage_slam_tpu_torch.eval import error_budget
+    from sage_slam_tpu_torch.ops import photo_reduce as pr
+
+    with open(os.path.join(ROOT, ERROR_BUDGET_JAX)) as f:
+        jax_rows = json.load(f)
+    out = os.path.join(ROOT, "_runs", "error_budget.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    pr.photo_reduce.launches = 0
+    t0 = time.perf_counter()
+    report, systems = error_budget.run(["--num_frames", "64", "--stages", ",".join(ERROR_BUDGET_STAGES),
+                                        "--out", out])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = pr.photo_reduce.launches
+    iters = sum(s.mapper.step_iters_total for s in systems.values())
+    for label in ERROR_BUDGET_STAGES:
+        r, j = report[label], jax_rows[label]
+        say(f"error_budget [{card}] {label}: {r['frames']} frames, {r['keyframes']} keyframes, lost "
+            f"{r['tracking_lost']}, {r['wall_s']} s; ate_sim3_pct {r['ate_sim3_pct']} (JAX's TPU run "
+            f"{j['ate_sim3_pct']}), kf_ate_sim3_pct {r.get('kf_ate_sim3_pct')} (JAX {j['kf_ate_sim3_pct']}), "
+            f"depth RMSE mean {r.get('depth_rmse_mean')} (JAX {j['depth_rmse_mean']}); mapping LM iterations "
+            f"{systems[label].mapper.step_iters_total}")
+        numbers = [v for k, v in r.items() if isinstance(v, float)]
+        if not np.isfinite(numbers).all() or abs(r["keyframes"] - j["keyframes"]) > 3 or r["frames"] != j["frames"]:
+            fail(f"error_budget {label}: non-finite values or keyframes {r['keyframes']} outside "
+                 f"{j['keyframes']} +- 3: {r}")
+    if launches == 0 or launches != iters:
+        fail(f"error_budget: photo_reduce launched {launches} times for {iters} mapping LM iterations")
+    say(f"error_budget: photo_reduce launches {launches} = mapping LM iterations over the stages; "
+        f"{run_s:.3f} s: ok")
+    del systems
+    torch.cuda.empty_cache()
+    return dict(launches=launches, rows={k: report[k] for k in ERROR_BUDGET_STAGES})
+
+
+def gt_probe_path(dev, card: str, peaks) -> dict:
+    """Phase 11(d): the probe from exact ground truth, grad_report held
+    against a CPU clone, the walk, and K1 at the full graph."""
+    from sage_slam_tpu_torch.config import SlamConfig
+    from sage_slam_tpu_torch.eval import gt_probe
+    from sage_slam_tpu_torch.io.dataset import Bowl3DInterface
+    from sage_slam_tpu_torch.ops import photo_reduce as pr
+
+    with open(os.path.join(ROOT, GT_PROBE_JAX)) as f:
+        jax_probe = json.load(f)
+    # gt_probe.main's configuration with GT_PROBE's flags
+    n_frames, h, w, stride, back = (GT_PROBE[k] for k in ("num_frames", "height", "width", "stride", "back"))
+    data = Bowl3DInterface(num_frames=n_frames, height=h, width=w, seed=0, orbit_radius=0.22, rot_amp=0.25,
+                           mask_margin=6)
+    cfg = SlamConfig(net_input_size=(h, w), net_output_size=(h // 2, w // 2),
+                     max_keyframes=max(32, n_frames // stride + 2))
+    pr.photo_reduce.launches = 0
+    t0 = time.perf_counter()
+    system, kf_ids, kf_ts = gt_probe.build_gt_map(cfg, data, stride, back, device=dev)
+    cpu = system.clone("cpu")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    grad = gt_probe.grad_report(system)
+    grad_s = time.perf_counter() - t0
+    saved = pr.photo_reduce.launches  # the CPU clone's plain reduces are no launches
+    ref = gt_probe.grad_report(cpu)
+    pr.photo_reduce.launches = saved
+    worst = max(abs(grad[lb][k] - v) / max(abs(v), 1e-30) for lb, row in ref.items() for k, v in row.items()
+                if abs(v) > 1e-12)
+    for lb, row in ref.items():
+        for k, v in row.items():
+            if abs(grad[lb][k] - v) > GT_PROBE_GRAD_RTOL * abs(v) + 1e-12:
+                fail(f"gt_probe grad_report {lb} {k}: card {grad[lb][k]!r}, CPU {v!r}")
+    say(f"gt_probe [{card}]: {len(kf_ids)} keyframes at exact ground truth ({build_s:.3f} s); grad_report "
+        f"({len(grad)} term subsets, {grad_s:.3f} s) card vs CPU clone: worst relative difference "
+        f"{worst:.3g} (limit {GT_PROBE_GRAD_RTOL}): ok; total error {grad['total']['error']:.6g} (JAX's TPU run "
+        f"{jax_probe['grad_at_gt']['total']['error']:.6g}), grad trans RMS {grad['total']['grad_trans_rms']:.6g} "
+        f"(JAX {jax_probe['grad_at_gt']['total']['grad_trans_rms']:.6g})")
+    del cpu
+    t0 = time.perf_counter()
+    sections = gt_probe.section_report(system, len(kf_ids) // 2, steps=GT_PROBE_SECTION_STEPS)
+    section_s = time.perf_counter() - t0
+    off = {k: v["argmin_frac"] for k, v in sections.items() if v["argmin_frac"] != 0.0}
+    t0 = time.perf_counter()
+    walk = gt_probe.walk_report(system, data, kf_ts)
+    torch.cuda.synchronize()
+    walk_s = time.perf_counter() - t0
+    launches = pr.photo_reduce.launches
+    iters = system.mapper.step_iters_total
+    jw = jax_probe["walk_from_gt"]
+    say(f"gt_probe [{card}]: sections at {GT_PROBE_SECTION_STEPS} steps over keyframe {len(kf_ids) // 2} "
+        f"({section_s:.3f} s), argmins off zero: {off or 'none'}; walk {walk_s:.3f} s: keyframe Sim3-ATE "
+        f"{walk['kf_ate_sim3_pct']}% of the span {walk['span']} (JAX's TPU run {jw['kf_ate_sim3_pct']}%), "
+        f"scale spread {walk['scale_rel_spread_pct']}% (JAX {jw['scale_rel_spread_pct']}%), code max "
+        f"{walk['code_norm_max']}; mapping LM iterations {iters}, photo_reduce launches {launches} "
+        f"(= {len(grad)} grad_report linearizations + the walk's LM iterations)")
+    if not np.isfinite([walk["kf_ate_sim3"], walk["scale_min"], walk["scale_max"]]).all():
+        fail(f"gt_probe: non-finite walk {walk}")
+    if launches != len(grad) + iters or iters == 0:
+        fail(f"gt_probe: photo_reduce launched {launches} times for {len(grad)} linearizations and {iters} "
+             f"mapping LM iterations")
+    k1 = reduce_at_path_shape(system.mapper, cfg, system.cam_pyr, card, peaks, "gt_probe full-graph",
+                              window_lo=0)
+    del system
+    torch.cuda.empty_cache()
+    return dict(launches=launches, walk=walk, **k1)
+
+
+def eval_path(dev, card: str, peaks) -> dict:
+    """Phase 11: dense and diagnostic eval on the card (see the module note)."""
+    from sage_slam_tpu_torch.demo import make_eval
+
+    chain = make_eval_chain(dev, card)
+    system = chain["system"]
+    k1 = reduce_at_path_shape(system.mapper, system.cfg, system.cam_pyr, card, peaks, "make_eval demo")
+    _, _, kf = make_eval.evaluate(chain["run_dir"], make_eval.eval_orbit(64))
+    del system, chain["system"]
+    torch.cuda.empty_cache()
+    volume = tsdf_hold(kf, dev, card)
+    budget = error_budget_rows(dev, card)
+    probe = gt_probe_path(dev, card, peaks)
+    return dict(launches={"make_eval": chain["launches"], "error_budget": budget["launches"],
+                          "gt_probe": probe["launches"]},
+                max_abs_err=max(k1["max_abs_err"], probe["max_abs_err"]),
+                max_rel_err=max(k1["max_rel_err"], probe["max_rel_err"]),
+                make_eval_shape=k1["shape"], gt_probe_shape=probe["shape"], tsdf=volume)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old-source", default=None,
@@ -1806,7 +2148,11 @@ def main() -> None:
     trained = train_path(dev, card, (peak_bw, peak_flops))
     max_err, max_rel = max(max_err, trained["max_abs_err"]), max(max_rel, trained["max_rel_err"])
 
-    # ---- 11. result ----
+    # ---- 11. dense and diagnostic eval ----
+    evaled = eval_path(dev, card, (peak_bw, peak_flops))
+    max_err, max_rel = max(max_err, evaled["max_abs_err"]), max(max_rel, evaled["max_rel_err"])
+
+    # ---- 12. result ----
     kernels = [{
         "name": "photo_reduce",
         "route": "cuda",
@@ -1814,11 +2160,11 @@ def main() -> None:
         "replaces": "sage_slam_tpu/ops/pallas_kernels.py:118",
         "launches": (launches["photo_reduce"] + mapped["launches"] + slammed["launches"]
                      + looped["launches"] + looped["driver_launches"] + demoed["launches"]
-                     + trained["launches"]),
+                     + trained["launches"] + sum(evaled["launches"].values())),
         "launches_by_path": {"run_ba": launches["photo_reduce"], "mapper": mapped["launches"],
                              "slam": slammed["launches"], "loop": looped["launches"],
                              "driver": looped["driver_launches"], "demo": demoed["launches"],
-                             "train": trained["launches"]},
+                             "train": trained["launches"], **evaled["launches"]},
         "max_abs_err": max_err,
         "max_rel_err": max_rel,
         "matched": True,
@@ -1833,6 +2179,8 @@ def main() -> None:
         "slam_shape": slammed["shape"],
         "loop_shape": looped["shape"],
         "demo_shape": demoed["shape"],
+        "make_eval_shape": evaled["make_eval_shape"],
+        "gt_probe_shape": evaled["gt_probe_shape"],
         "train_shape": {k: trained[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
                                                  "bound_by")},
         "backward": trained["backward"],

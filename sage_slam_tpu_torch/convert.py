@@ -10,7 +10,9 @@ them with ``jax.random.permutation``, which torch cannot reproduce.
 
 Vocabularies (``vocabulary_from_numpy``) and verified loops
 (``loop_info_from_numpy``) travel the same way, so a test can hand the JAX
-system's loops to the port. Network weights too: ``depth_params_from_numpy``,
+system's loops to the port; TSDF volumes travel in both directions
+(``tsdf_volume_from_numpy``, ``tsdf_volume_to_numpy``). Network weights
+too: ``depth_params_from_numpy``,
 ``feature_params_from_numpy`` and ``disc_params_from_numpy`` take the JAX
 param tree (nested dicts and lists of arrays) and fill the port's modules,
 whose parameter names are the tree's paths joined by dots;
@@ -272,4 +274,26 @@ def loop_info_from_numpy(info, device=None):
         pose_cur_ref=None if pose is None else _se3(pose, dev),
         query_scale=float(_field(info, "query_scale")), ref_scale=float(_field(info, "ref_scale")),
         desc_inlier_ratio=float(_field(info, "desc_inlier_ratio")), quality=float(_field(info, "quality")),
+    )
+
+
+def tsdf_volume_from_numpy(vol, device=None):
+    """The port's TSDFVolume from a JAX TSDFVolume's fields (tsdf, weight,
+    origin, voxel_size, trunc)."""
+    from .eval.tsdf import TSDFVolume
+
+    dev = resolve_device(device)
+    return TSDFVolume(
+        tsdf=_tensor(_field(vol, "tsdf"), dev), weight=_tensor(_field(vol, "weight"), dev),
+        origin=_tensor(_field(vol, "origin"), dev), voxel_size=float(_field(vol, "voxel_size")),
+        trunc=float(_field(vol, "trunc")),
+    )
+
+
+def tsdf_volume_to_numpy(vol) -> dict:
+    """A port TSDFVolume as {field: numpy array or float}, the keyword
+    arguments of a JAX TSDFVolume once its arrays are wrapped."""
+    return dict(
+        tsdf=vol.tsdf.cpu().numpy(), weight=vol.weight.cpu().numpy(), origin=vol.origin.cpu().numpy(),
+        voxel_size=vol.voxel_size, trunc=vol.trunc,
     )

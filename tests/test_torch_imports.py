@@ -51,14 +51,16 @@ SLICE_MODULES = [
     "training/losses.py", "training/discriminator.py", "training/dataset.py",
     "training/diff_ba.py", "training/train.py", "ops/photo_reduce.py", "ops/photometric.py",
     "ops/geometric.py",
+    # the dense and diagnostic eval slice
+    "eval/tsdf.py", "eval/error_budget.py", "eval/gt_probe.py", "demo/make_eval.py",
 ]
 
 
 @pytest.mark.parametrize("rel", SLICE_MODULES)
 def test_mapper_slice_module_is_guarded(rel):
     """Every module of the mapper, tracker / frontend, loop / driver, IO /
-    eval / demo and training slices exists and is among the files the guard
-    above walks."""
+    eval / demo, training and dense / diagnostic eval slices exists and is
+    among the files the guard above walks."""
     assert ROOT / "sage_slam_tpu_torch" / rel in PORT_FILES
 
 
