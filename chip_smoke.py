@@ -137,7 +137,9 @@ Phases, each of which exits non-zero on failure:
    with a flow entry in the joint eval, every logged value and parameter is
    finite and the BA weights and log sigma changed; one joint train step on
    the card is held against the same step on a CPU copy, and each
-   generator leaf's gradient against the CPU's (TRAIN_HOLD_*); the
+   generator leaf's gradient against the CPU's and against a second pass
+   on the card (TRAIN_HOLD_*), the BA's LM decisions equal in all three
+   passes; the
    exported networks, loaded as the demo loads them, build the same frame
    bit for bit; a resume restores epoch 2 and every parameter. Prints ms
    per separate, joint and eval step (host clock and CUDA events) and the
@@ -172,7 +174,38 @@ Phases, each of which exits non-zero on failure:
    TPU run's keyframe ATE; K1's launches equal grad_report's
    linearizations plus the walk's LM iterations; K1 held and timed at the
    full graph;
-12. a JSON line listing every kernel, then the card line, then the last
+12. the default-off paths and multi-device BA. (a) The mega tables
+   (photometric.USE_MEGA_TABLES) at the bench point: linearize held to the
+   per-level tables' (H, b) at rtol 1e-5 + atol 1e-6 max|H|, the error at
+   1e-6 relative; a 10-iteration run_ba with them against the same call
+   without (equal iterations, the error at 1e-6 relative or 1e-7 of the
+   start's); K1's launches equal the LM iterations; one lm_track at
+   SlamConfig() widths with and without them (6 iterations, the frames
+   being equal, poses 1e-5, error rtol 1e-4); ms per step of each layout,
+   in turns. (b) run_ba with solver="schur" against "dense" at the bench
+   point (error rtol 1e-5; translations and codes rtol 1e-4 + atol 1e-6),
+   and solver="auto" on synthetic.bench_problem(k=48, 96+96 ring edges),
+   which must take the Schur branch (ATOL_48 on translations and codes);
+   ms per step of each solver. (c) Mapper.mapping_step(mesh=) on a
+   one-rank NCCL group (parallel/launch.one_rank) on clones of phase 6's
+   mapper (the 256-keyframe store: a 5888-wide system) against the
+   unsharded mapping_step from the same state (error rtol 1e-4; poses,
+   codes and scales atol 1e-5; the same iterations and edge budgets),
+   windowed and with refine_mapping's coarse photo_weights (full=True),
+   which the JAX package refuses; K1's launches equal the step's LM
+   iterations; ms per sharded and unsharded step. (d) two gloo ranks on
+   the one card (parallel/launch.spawn): sharded_run_ba and
+   sharded_window_run_ba at the bench point, each rank 12 of the 24 edges
+   per family and half the keyframe rows, against one process's run_ba /
+   compact run_ba (tests/test_sharded_ba.py's and
+   tests/test_sharded_store.py's tolerances), the two ranks' variables
+   bit-equal, each rank's K1 launches equal to the LM iterations; prints
+   each rank's store-table bytes beside store_bytes_per_device; both
+   dryrun(1)s with no devices named must run on cuda:0 in an NCCL group.
+   K1 is held
+   and timed at E=24 (mega prep inputs), at phase 6's window under the
+   mesh path and at one rank's E=12. Prints the phase's time;
+13. a JSON line listing every kernel, then the card line, then the last
    line ``{"ok": true, "device": {...}}``.
 
 Imports neither JAX nor the JAX package.
@@ -398,10 +431,19 @@ def reduce_at_path_shape(mapper, cfg, pyr, card: str, peaks, path: str, window_l
         soft=cfg.mapper.soft_inlier_gate,
     )
     weights, ratios = tuple(cfg.mapper.photo_factor_weights), photometric.level_ratios(pyr)
+    return k1_hold(prep, weights, ratios, card, peaks, f"the {path} path's window prep inputs")
+
+
+def k1_hold(prep, weights, ratios, card: str, peaks, label: str) -> dict:
+    """K1 on one linearization's prep inputs against its plain version, and
+    timed there beside the plain version, the library call and the bound.
+    Launches made here are not counted."""
+    from sage_slam_tpu_torch.ops import photo_reduce as pr
+
     saved = pr.photo_reduce.launches
     out = pr.photo_reduce(*prep, weights, ratios)
     ref = pr.photo_reduce_ref(*prep, weights, ratios)
-    abs_err, rel_err = compare_reduce(out, ref, False, f"{path} window prep inputs")
+    abs_err, rel_err = compare_reduce(out, ref, False, label)
     for _ in range(3):
         pr.photo_reduce(*prep, weights, ratios)
     t_kernel = device_ms(lambda: pr.photo_reduce(*prep, weights, ratios), 50, "photo_reduce")
@@ -411,7 +453,7 @@ def reduce_at_path_shape(mapper, cfg, pyr, card: str, peaks, path: str, window_l
     t_library = device_ms(run_library, 50)
     pr.photo_reduce.launches = saved
     bound_ms, bound_by, in_b, out_b, _ = reduce_bound(prep, *peaks)
-    say(f"kernel vs plain: photo_reduce on the {path} path's window prep inputs "
+    say(f"kernel vs plain: photo_reduce on {label} "
         f"{tuple(prep[0].shape)}: ok; [{card}] device {t_kernel:.5f} ms, plain {t_plain:.4f} ms, "
         f"library bmm of the final contraction {t_library:.4f} ms, bound {bound_ms:.5f} ms by "
         f"{bound_by} ({(in_b + out_b) / 1e6:.1f} MB) = {bound_ms / t_kernel:.1%} of bound")
@@ -582,7 +624,7 @@ def mapper_path(dev, card: str, peaks) -> dict:
         f"{[st['iters'] for st in steady]}")
     say(f"mapper path [{card}]: keyframe store {store_bytes} bytes ({store_bytes / 2**30:.3f} GiB) "
         f"at capacity {cfg.max_keyframes}; peak device memory {torch.cuda.max_memory_allocated()} bytes")
-    return dict(launches=launches, **k1)
+    return dict(launches=launches, mapper=mapper, **k1)
 
 
 def matcher_flips(card_sys, cpu_sys, kf: int, fr_card, fr_cpu):
@@ -1337,26 +1379,47 @@ def train_hold(state, triplet, pyr, tcfg, dev) -> str:
     """One joint train step on the card against the same step on a CPU copy:
     same parameters, batch and injected sample ids; and each generator
     leaf's gradient of the joint loss, card against CPU."""
-    from sage_slam_tpu_torch.training import train
+    from sage_slam_tpu_torch.training import diff_ba, train
 
     ids = train.draw_sample_ids(torch.Generator().manual_seed(7), pyr[0].num_pixels,
                                 tcfg.num_photo_samples)
     loss_fn = train.make_loss_fn(pyr, tcfg, True)
+    # the BA's LM decisions (each state selection's flag) in each gradient
+    # pass: card and CPU gradients are of the same function only when they
+    # agree
+    decisions, select = [], diff_ba._select
+
+    def spy(flag, a, b):
+        decisions[-1].append(bool(flag))
+        return select(flag, a, b)
+
+    def generator_grads(st, batch):
+        gen = train.param_leaves(st.params, with_disc=False)
+        decisions.append([])
+        diff_ba._select = spy
+        try:
+            grads = torch.autograd.grad(loss_fn(st.params, batch, ids)[0], [t for _, t in gen],
+                                        allow_unused=True)
+        finally:
+            diff_ba._select = select
+        return [(torch.zeros_like(t) if g is None else g.detach()).cpu()
+                for (_, t), g in zip(gen, grads)]
+
     out = []
     for where in (dev, torch.device("cpu")):
         st = train.clone_state(state, where)
         batch = train.triplet_to_batch(triplet, triplet.camera, where)
-        gen = train.param_leaves(st.params, with_disc=False)
-        grads = torch.autograd.grad(loss_fn(st.params, batch, ids)[0], [t for _, t in gen],
-                                    allow_unused=True)
-        grads = [torch.zeros_like(t) if g is None else g.detach() for (_, t), g in zip(gen, grads)]
+        grads = generator_grads(st, batch)
+        if where == dev:  # the card's gradient again, against itself
+            grads_again = generator_grads(st, batch)
         before = [t.detach().clone() for _, t in train.param_leaves(st.params)]
         step = train.make_train_step(pyr, tcfg, True, tcfg.joint_lr_factor)
         st, loss, aux = step(st, batch, ids=ids)
         after = [t.detach() for _, t in train.param_leaves(st.params)]
         out.append((float(loss), {k: float(v) for k, v in aux.items()},
-                    [(a - b).cpu() for a, b in zip(after, before)], [g.cpu() for g in grads]))
+                    [(a - b).cpu() for a, b in zip(after, before)], grads))
     (lg, ag, dg, gg), (lc, ac, dc, gc) = out
+    same_branch = decisions[0] == decisions[1] == decisions[2]
     rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)  # noqa: E731
     loss_rel = rel(lg, lc)
     aux_key = max(ac, key=lambda k: rel(ag[k], ac[k]))
@@ -1382,6 +1445,12 @@ def train_hold(state, triplet, pyr, tcfg, dev) -> str:
     exempt = [r for r in leaves if r["exempt"]]
     held = [r for r in leaves if not r["exempt"]]
     bad = [r for r in held if not r["rel"] <= (TRAIN_HOLD_SCALAR if r["scalar"] else TRAIN_HOLD_LEAF)]
+    # the card's second pass against its first, held as the CPU is
+    again = {n: float((a - b).abs().max()) / r["own"] if r["own"] > 0 else 0.0
+             for n, a, b, r in zip(gen_names, grads_again, gg, leaves) if not r["exempt"]}
+    bad += [dict(name=f"{n} (card against itself)", rel=v) for n, v in again.items()
+            if not v <= (TRAIN_HOLD_SCALAR if n.startswith("ba.") or n == "log_sigma" else TRAIN_HOLD_LEAF)]
+    worst_again = max(again, key=again.get)
     w_scalar = max((r for r in held if r["scalar"]), key=lambda r: r["rel"])
     w_leaf = max((r for r in held if not r["scalar"]), key=lambda r: r["rel"])
     line = (f"joint train step card vs CPU: loss {lg:.8g} vs {lc:.8g} (rel {loss_rel:.3g}, tolerance "
@@ -1394,7 +1463,14 @@ def train_hold(state, triplet, pyr, tcfg, dev) -> str:
             + ", ".join(f"{r['name']} {r['rel']:.3g}" for r in held if r["scalar"])
             + f"; worst network leaf {w_leaf['name']} {w_leaf['rel']:.3g} of its |g| {w_leaf['own']:.4g} "
             f"(tolerance {TRAIN_HOLD_LEAF}); exempt below the floor: "
-            + (", ".join(f"{r['name']} |g| {r['own']:.3g}" for r in exempt) or "none"))
+            + (", ".join(f"{r['name']} |g| {r['own']:.3g}" for r in exempt) or "none")
+            + f"; the card's gradient against itself: worst {worst_again} {again[worst_again]:.3g}"
+            + f"; LM decisions (card, card again, CPU) {'equal' if same_branch else 'DIFFER'}: "
+            + ("".join("1" if d else "0" for d in decisions[0]) if same_branch
+               else " / ".join("".join("1" if d else "0" for d in ds) for ds in decisions)))
+    if not same_branch:
+        fail(line + "; the card and the CPU took different LM decisions, so their gradients "
+             "are of different branches")
     if bad or not (loss_rel <= TRAIN_HOLD_LOSS and aux_rel <= TRAIN_HOLD_AUX
                    and diffs[worst] <= TRAIN_HOLD_UPDATE * top and l2 <= TRAIN_HOLD_UPDATE):
         fail(line + "; over tolerance: " + ", ".join(f"{r['name']} {r['rel']:.3g}" for r in bad))
@@ -1901,6 +1977,383 @@ def eval_path(dev, card: str, peaks) -> dict:
                 make_eval_shape=k1["shape"], gt_probe_shape=probe["shape"], tsdf=volume)
 
 
+# phase 12: the default-off paths and multi-device BA. Tolerances: the
+# mega path test_mega_photometric_path_matches_plain's; Schur
+# test_schur_solver_matches_dense's (translations and codes at 48
+# keyframes to ATOL_48); the mesh step
+# test_mapping_step_sharded_matches_single_on_looped_map's; the two ranks
+# tests/test_sharded_ba.py:41-52's and tests/test_sharded_store.py:64-81's.
+MESH_RUN_DIR = "_runs/multi"
+# the 48-keyframe ring (E=96+96) is anchored at keyframe 0 only, and its
+# translations are ~1e-2: there test_schur_solver_matches_dense's atol
+# 1e-6 (with rtol 1e-4) failed on an H100 80GB HBM3 at 700 W, 14 of 144
+# translations off by up to 3.79e-6, while the error agreed to 5.4e-6
+# relative; they are held to atol 1e-5, as tests/test_torch_schur.py
+# holds its 48-keyframe chain (test_sharded_ba.py's translation atol)
+ITERS_48 = 10
+ATOL_48 = 1e-5
+
+
+def stopwatch(fn):
+    """fn() -> (its result, host ms), the card synchronized around it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def rank_calls(mesh, *calls):
+    """A rank body (parallel/launch.spawn) that runs several rank bodies
+    (fn, jobs) in turn on one group -> per body its results, each with
+    the host ms of its call (sharding included)."""
+    out = []
+    for fn, jobs in calls:
+        res, ms = stopwatch(lambda fn=fn, jobs=jobs: fn(mesh, *jobs))
+        out.append([dict(r, ms=ms) for r in res])
+    return out
+
+
+def counted(fn):
+    """fn() -> (its result, K1's launches during it, host ms)."""
+    from sage_slam_tpu_torch.ops import photo_reduce as pr
+
+    torch.cuda.synchronize()
+    pr.photo_reduce.launches = 0
+    out, ms = stopwatch(fn)
+    return out, pr.photo_reduce.launches, ms
+
+
+def vars_diff(a, b, rows=None) -> dict:
+    """max |a - b| per variable class, on the host (rows: a selection)."""
+    sel = slice(None) if rows is None else rows
+    return {name: float((x[sel].detach().cpu() - y[sel].detach().cpu()).abs().max())
+            for name, x, y in (("trans", a.pose.trans, b.pose.trans), ("rot", a.pose.rot, b.pose.rot),
+                               ("code", a.code, b.code), ("scale", a.scale, b.scale))}
+
+
+def hold_run(out, ref, label: str, err_rtol: float, err_atol: float = 0.0, rtol: float = 0.0,
+             atol: dict | None = None) -> str:
+    """A run_ba-like result (variables, error, iterations, ...) against a
+    reference: equal iterations, the error and each variable class to the
+    tolerances given -> the printed differences."""
+    (v, err, iters), (vr, err_r, iters_r) = out[:3], ref[:3]
+    if iters != iters_r:
+        fail(f"{label}: {iters} iterations against {iters_r}")
+    np.testing.assert_allclose(float(err), float(err_r), rtol=err_rtol, atol=err_atol, err_msg=label)
+    for name, a, b in (("trans", v.pose.trans, vr.pose.trans), ("rot", v.pose.rot, vr.pose.rot),
+                       ("code", v.code, vr.code), ("scale", v.scale, vr.scale)):
+        if atol is not None and name in atol:
+            np.testing.assert_allclose(a.detach().cpu().numpy(), b.detach().cpu().numpy(), rtol=rtol,
+                                       atol=atol[name], err_msg=f"{label} {name}")
+    d = vars_diff(v, vr)
+    return (f"{iters} iterations, error {float(err):.8g} vs {float(err_r):.8g}, max |d| "
+            + ", ".join(f"{k} {x:.3g}" for k, x in d.items()))
+
+
+def bench_prep(problem, variables, pyr, cfg, n_edges=None):
+    """One linearization's K1 inputs on a prepared problem's photometric
+    edges (the first n_edges of them)."""
+    from sage_slam_tpu_torch.ops import photometric
+    from sage_slam_tpu_torch.solver import ba
+
+    pe = problem.photo_edges
+    if n_edges is not None:
+        pe = ba.EdgeTable(*(x[:n_edges] for x in pe))
+    kf0, fr1, shared = ba._photo_inputs(problem.window, pe)
+    return photometric.photo_prep(
+        ba._edge_pose(variables, pe.i0), ba._edge_pose(variables, pe.i1),
+        variables.code[pe.i0], variables.scale[pe.i0], kf0, fr1, shared, pyr, cfg.dpt_eps,
+        soft=cfg.soft_inlier_gate,
+    )
+
+
+def prior_gap(mapper, full: bool) -> float:
+    """What the full-capacity (mesh) problem's error holds beyond the
+    compact step's from the same state: the priors of active keyframes
+    outside the compact set, which are frozen, so a constant. The
+    incident rows' terms cancel; the edge selection is the same."""
+    from sage_slam_tpu_torch.solver import ba
+
+    n, _, v = mapper.store.snapshot()
+    lo = 0 if full else max(0, n - mapper.cfg.mapper.window_size)
+    compact, v_c, _, _, _ = mapper._compact_step_inputs(n, v, full)
+    whole = mapper.build_problem(window_lo=lo, num_active=n)
+    dev = v.scale.device
+    none = ba.EdgeTable(*(torch.zeros(0, dtype=t, device=dev)
+                          for t in (torch.int64, torch.int64, torch.float32)))
+
+    def priors_only(pb):
+        return pb._replace(photo_edges=none, geo_edges=none, reproj_edges=None)
+
+    cfg, pyr = mapper.cfg.mapper, mapper.cam_pyr
+    return float(ba.total_error(v, priors_only(whole), pyr, cfg)
+                 - ba.total_error(v_c, priors_only(compact), pyr, cfg))
+
+
+def mega_and_schur(dev, card: str, peaks) -> dict:
+    """Phase 12(a-b): the mega tables and the Schur solver at the bench
+    point, and "auto" at 48 keyframes (see the module note)."""
+    from sage_slam_tpu_torch import synthetic
+    from sage_slam_tpu_torch.config import MapperConfig, TrackerConfig
+    from sage_slam_tpu_torch.geometry.se3 import se3_exp
+    from sage_slam_tpu_torch.ops import photometric
+    from sage_slam_tpu_torch.solver import ba, graph
+    from sage_slam_tpu_torch.tracker import tracker
+
+    cfg = MapperConfig()
+    variables, problem, pyr = synthetic.bench_problem(device=dev)
+    k = variables.num_kf
+    ones = torch.ones(k, device=dev)
+    plain = ba.prepare_problem(problem, pyr)
+    photometric.USE_MEGA_TABLES = True
+    try:
+        mega = ba.prepare_problem(problem, pyr)
+        target = tracker.TrackerTarget(plain.window.feat_pyr[:, 1], plain.window.grad_pyr[:, :, 1],
+                                       plain.window.mask_flat)
+        target_mega = target.with_packed(pyr)
+    finally:
+        photometric.USE_MEGA_TABLES = False
+    target_plain = target.with_packed(pyr)
+    if mega.window.mega_fg is None or target_mega.mega_fg is None or target_plain.mega_fg is not None:
+        fail("mega tables: USE_MEGA_TABLES did not switch the tables")
+    mega_bytes = sum(t.numel() * t.element_size() for t in (mega.window.mega_fg, mega.window.mega_feat))
+    launches = {}
+
+    # (a) linearize and run_ba, mega against per-level
+    h0, b0, e0 = ba.linearize(variables, plain, pyr, cfg)
+    h1, b1, e1 = ba.linearize(variables, mega, pyr, cfg)
+    scale = float(h0.abs().max())
+    np.testing.assert_allclose(h1.cpu().numpy(), h0.cpu().numpy(), rtol=1e-5, atol=1e-6 * scale)
+    np.testing.assert_allclose(b1.cpu().numpy(), b0.cpu().numpy(), rtol=1e-5, atol=1e-6 * scale)
+    np.testing.assert_allclose(float(e1), float(e0), rtol=1e-6)
+    say(f"mega tables: linearize at the bench point, mega vs per-level: max|dH| "
+        f"{float((h1 - h0).abs().max()):.3g} of max|H| {scale:.4g}, max|db| "
+        f"{float((b1 - b0).abs().max()):.3g}, error {float(e1):.8g} vs {float(e0):.8g}: ok")
+    out_m, launches["mega"], _ = counted(lambda: ba.run_ba(variables, mega, pyr, cfg, ones, max_iters=10))
+    out_p = ba.run_ba(variables, plain, pyr, cfg, ones, max_iters=10)
+    if launches["mega"] != out_m[2]:
+        fail(f"mega run_ba: K1 launched {launches['mega']} times for {out_m[2]} iterations")
+    # an error that descends to ~0 is held to 1e-7 of the start's beside
+    # the relative 1e-6 (test_run_ba_matches_jax's atol)
+    err0 = float(e0)
+    line = hold_run(out_m, out_p, "mega run_ba vs per-level", 1e-6, 1e-7 * err0)
+    say(f"mega tables: run_ba 10 iterations, mega vs per-level: {line}; K1 launches "
+        f"{launches['mega']}: ok")
+    times = {}
+    for name, prob in (("per-level", plain), ("mega", mega), ("mega", mega), ("per-level", plain)):
+        host, ev, _ = time_steps(lambda: ba.run_ba(variables, prob, pyr, cfg, ones, max_iters=10))
+        times.setdefault(name, []).append((host, ev))
+    for name, runs in times.items():
+        say(f"time [{card}] run_ba 10-iteration step, {name} tables: "
+            + ", ".join(f"{h:.3f} ms host / {e:.3f} ms events" for h, e in runs)
+            + " (in turns: per-level, mega, mega, per-level)")
+    say(f"mega tables: mega_fg + mega_feat {mega_bytes} bytes at K={k} "
+        f"(rows {tuple(mega.window.mega_fg.shape)}, {tuple(mega.window.mega_feat.shape)})")
+    k1_mega = k1_hold(bench_prep(mega, variables, pyr, cfg), tuple(cfg.photo_factor_weights),
+                      photometric.level_ratios(pyr), card, peaks, "the mega path's prep inputs")
+
+    # lm_track at the same widths, mega against per-level, at a budget
+    # that stops before the optimum's float32 ties (the frames are equal),
+    # held to test_torch_tracker.py's lm_track tolerances
+    w = plain.window
+    ref = tracker.TrackerRef(w.homo[0], w.bias_at[0], w.src_feats[0])
+    init = se3_exp(torch.tensor([0.03, -0.02, 0.01, 0.01, -0.02, 0.015], device=dev))
+    tcfg = dataclasses.replace(TrackerConfig(), max_num_iters=6)
+    track = {}
+    for name, tgt in (("per-level", target_plain), ("mega", target_mega)):
+        track[name] = stopwatch(lambda: tracker.lm_track(init.rot, init.trans, ref, tgt, pyr, tcfg))
+    rm, rp = track["mega"][0], track["per-level"][0]
+    if rm.iterations != rp.iterations:
+        fail(f"mega lm_track: {rm.iterations} iterations against {rp.iterations}")
+    np.testing.assert_allclose(rm.trans.cpu().numpy(), rp.trans.cpu().numpy(), atol=1e-5)
+    np.testing.assert_allclose(rm.rot.cpu().numpy(), rp.rot.cpu().numpy(), atol=1e-5)
+    np.testing.assert_allclose(float(rm.error), float(rp.error), rtol=1e-4)
+    t_track = {name: time_steps(lambda tgt=tgt: tracker.lm_track(init.rot, init.trans, ref, tgt, pyr, tcfg))[:2]
+               for name, tgt in (("per-level", target_plain), ("mega", target_mega))}
+    say(f"mega tables: lm_track at SlamConfig() widths, mega vs per-level: {rm.iterations} "
+        f"iterations, max|d trans| {float((rm.trans - rp.trans).abs().max()):.3g}, error "
+        f"{float(rm.error):.8g} vs {float(rp.error):.8g}: ok; [{card}] "
+        + ", ".join(f"{n} {h:.3f} ms host / {e:.3f} ms events" for n, (h, e) in t_track.items()))
+
+    # (b) Schur against dense at the bench point and at 48 keyframes
+    schur_cfg, dense_cfg = (dataclasses.replace(cfg, solver=s) for s in ("schur", "dense"))
+    out_s, launches["schur"], _ = counted(
+        lambda: ba.run_ba(variables, plain, pyr, schur_cfg, ones, max_iters=10))
+    if launches["schur"] != out_s[2]:
+        fail(f"schur run_ba: K1 launched {launches['schur']} times for {out_s[2]} iterations")
+    line = hold_run(out_s, out_p, "schur vs dense, bench point", 1e-5, 1e-7 * err0, rtol=1e-4,
+                    atol={"trans": 1e-6, "code": 1e-6})
+    say(f"schur: run_ba at the bench point (K={k}), schur vs dense: {line}: ok")
+    v48, p48, pyr48 = synthetic.bench_problem(device=dev, k=48, n_photo=96, n_geo=96)
+    p48 = ba.prepare_problem(p48, pyr48)
+    ones48 = torch.ones(48, device=dev)
+    seen = []
+    lm_loop = graph.lm_loop
+
+    def spy(*args, solver="dense", **kwargs):
+        seen.append(solver)
+        return lm_loop(*args, solver=solver, **kwargs)
+
+    graph.lm_loop = spy
+    try:
+        auto_cfg = dataclasses.replace(cfg, solver="auto")
+        out_a, n_auto, _ = counted(lambda: ba.run_ba(v48, p48, pyr48, auto_cfg, ones48,
+                                                     max_iters=ITERS_48))
+        out_d48 = ba.run_ba(v48, p48, pyr48, dense_cfg, ones48, max_iters=ITERS_48)
+    finally:
+        graph.lm_loop = lm_loop
+    launches["schur"] += n_auto
+    if seen != ["schur", "dense"] or n_auto != out_a[2]:
+        fail(f"auto at 48 keyframes: solvers {seen}, K1 launches {n_auto} for {out_a[2]} iterations")
+    err48 = float(ba.total_error(v48, p48, pyr48, cfg))
+    line = hold_run(out_a, out_d48, "auto (schur) vs dense, 48 keyframes", 1e-5, 1e-7 * err48,
+                    rtol=1e-4, atol={"trans": ATOL_48, "code": ATOL_48})
+    say(f"schur: run_ba solver='auto' at 48 keyframes (E=96+96, {ITERS_48} iterations) took "
+        f"{seen[0]}; vs dense: {line}: ok")
+    for label, vv, pp, pyr_, ones_ in (("bench point K=8", variables, plain, pyr, ones),
+                                       ("48 keyframes", v48, p48, pyr48, ones48)):
+        t = {name: time_steps(lambda c=c: ba.run_ba(vv, pp, pyr_, c, ones_, max_iters=10))[:2]
+             for name, c in (("dense", dense_cfg), ("schur", schur_cfg), ("dense", dense_cfg))}
+        say(f"time [{card}] run_ba 10-iteration step at the {label}: "
+            + ", ".join(f"{n} {h:.3f} ms host / {e:.3f} ms events" for n, (h, e) in t.items())
+            + f" (system width {vv.num_kf * vv.block_dim})")
+    return dict(launches=launches, k1=k1_mega, bench=(variables, plain, pyr, cfg))
+
+
+def multi_device(dev, card: str, peaks, mapper, bench) -> dict:
+    """Phase 12(c-d): the mapper's step on a one-rank NCCL group, and
+    two gloo ranks on the one card (see the module note)."""
+    from sage_slam_tpu_torch import convert
+    from sage_slam_tpu_torch.ops import photometric
+    from sage_slam_tpu_torch.parallel import launch, sharded_ba, sharded_store
+    from sage_slam_tpu_torch.solver import ba
+
+    launches = {}
+    run_dir = os.path.join(ROOT, MESH_RUN_DIR)
+    os.makedirs(run_dir, exist_ok=True)
+    cfg = mapper.cfg
+    n = mapper.store.num_active
+    width = mapper.store.capacity * (7 + cfg.code_size)
+    w = cfg.mapper.photo_factor_weights
+    coarse = tuple(0.0 if lvl < len(w) // 2 else w[lvl] for lvl in range(len(w)))
+    k1_mesh = None
+    with launch.one_rank(dev, backend="nccl", workdir=run_dir) as mesh:
+        say(f"mesh: one-rank {torch.distributed.get_backend()} group on {mesh.device}, "
+            f"the phase-6 mapper's state ({n} keyframes, store capacity {mapper.store.capacity}, "
+            f"a {width}-wide system)")
+        for label, kw in (("windowed", {}), ("refine's coarse weights", dict(full=True,
+                                                                             photo_weights=coarse))):
+            single, sharded = mapper.clone(dev), mapper.clone(dev)
+            gap = prior_gap(mapper, kw.get("full", False))
+            err_m, count, ms_m = counted(lambda: sharded.mapping_step(mesh=mesh, **kw))
+            err_s, ms_s = stopwatch(lambda: single.mapping_step(**kw))
+            launches[f"mesh {label}"] = count
+            if count != sharded.last_step_iters or count == 0:
+                fail(f"mesh step ({label}): K1 launched {count} times for "
+                     f"{sharded.last_step_iters} iterations")
+            if sharded.last_step_iters != single.last_step_iters:
+                fail(f"mesh step ({label}): {sharded.last_step_iters} iterations against "
+                     f"{single.last_step_iters}")
+            # the full-capacity error holds the frozen keyframes' priors
+            # that the compact step leaves out: a constant
+            np.testing.assert_allclose(err_m - gap, err_s, rtol=1e-4, err_msg=label)
+            d = vars_diff(sharded.store.variables, single.store.variables, slice(0, n))
+            if max(d.values()) > 1e-5:
+                fail(f"mesh step ({label}) vs unsharded: {d}")
+            if sharded.photo_edge_iters != single.photo_edge_iters:
+                fail(f"mesh step ({label}): edge budgets differ from the unsharded step's")
+            say(f"mesh step ({label}) vs unsharded from the same state: {count} iterations, "
+                f"error {err_m:.8g} less the frozen keyframes' priors {gap:.6g} vs {err_s:.8g}, max |d| "
+                + ", ".join(f"{k_} {x:.3g}" for k_, x in d.items())
+                + f": ok; [{card}] first call: sharded {ms_m:.3f} ms ({width}-wide system), "
+                f"unsharded {ms_s:.3f} ms (compact system)")
+            if k1_mesh is None:
+                k1_mesh = reduce_at_path_shape(sharded, cfg, mapper.cam_pyr, card, peaks, "mesh")
+                # a second step on each clone, warm: same shapes, state moved on
+                t_m = stopwatch(lambda: sharded.mapping_step(mesh=mesh))[1]
+                t_s = stopwatch(lambda: single.mapping_step())[1]
+                say(f"time [{card}] mesh mapping_step, second call: sharded {t_m:.3f} ms "
+                    f"({sharded.last_step_iters} iterations, {width}-wide), unsharded {t_s:.3f} ms "
+                    f"({single.last_step_iters} iterations)")
+            del single, sharded
+            torch.cuda.empty_cache()
+
+    # (d) two gloo ranks on the card, against one process
+    variables, problem, pyr, bcfg = bench
+    v_cpu, p_cpu = convert.to_device(variables, "cpu"), convert.to_device(problem, "cpu")
+    k = variables.num_kf
+    ids = torch.arange(k)
+    umask = torch.ones(k)
+    umask[0] = 0.0  # one frozen row
+    ba_job = (v_cpu, p_cpu, pyr, bcfg, torch.ones(k), 10, False)
+    store_job = (v_cpu, p_cpu.window, p_cpu.photo_edges, p_cpu.geo_edges, None, p_cpu.priors, ids,
+                 torch.ones(k), umask, pyr, bcfg, 10)
+    (outs, ms_spawn) = stopwatch(lambda: launch.spawn(
+        rank_calls, 2, [(sharded_ba.run_rank, [ba_job]), (sharded_store.run_rank, [store_job])],
+        devices=["cuda:0", "cuda:0"], backend="gloo", workdir=os.path.join(run_dir, "gloo"),
+        timeout_s=400))
+    ref = ba.run_ba(variables, problem, pyr, bcfg, torch.ones(k, device=dev), max_iters=10)
+    ids_d = ids.to(dev)
+    compact = ba.compact_problem_keyframes(problem, ids_d, torch.ones(k, device=dev), pyr)
+    ref_c = ba.run_ba(variables, compact, pyr, bcfg, umask.to(dev), max_iters=10)
+    launches["gloo ranks"] = 0
+    as_vars = lambda o: type(variables)(type(variables.pose)(o["rot"], o["trans"]), o["code"],  # noqa: E731
+                                        o["scale"])
+    for name, which, refv, err_tol, tol in (
+            ("sharded_run_ba", 0, ref, (1e-4, 1e-6), dict(trans=1e-5, code=1e-5)),
+            ("sharded_window_run_ba", 1, ref_c, (5e-4, 1e-6), dict(trans=1e-6, scale=1e-6))):
+        rank_outs = [o[which][0] for o in outs]
+        for rank, o in enumerate(rank_outs):
+            label = f"{name} rank {rank}"
+            rtol = 1e-4 if which == 1 else 0.0
+            line = hold_run((as_vars(o), o["error"], o["iterations"]), refv, label, err_tol[0],
+                            err_tol[1], rtol=rtol, atol=tol)
+            if o["launches"] != o["iterations"]:
+                fail(f"{label}: K1 launched {o['launches']} times for {o['iterations']} iterations")
+            for key in ("rot", "trans", "code", "scale", "error"):
+                if not torch.equal(o[key], rank_outs[0][key]):
+                    fail(f"{name}: rank {rank}'s {key} differs from rank 0's")
+            extra = (f", photometric edges {o['photo_edges']}" if which == 0 else
+                     f", store tables {o['local_bytes']} bytes on this rank (store_bytes_per_device "
+                     f"{o['accounting']})")
+            say(f"gloo: {label} on the card vs one process: {line}; K1 launches {o['launches']}, "
+                f"{o['ms']:.3f} ms{extra}: ok")
+            launches["gloo ranks"] += o["launches"]
+        say(f"gloo: {name}: the two ranks' variables and error are bit-equal: ok")
+    say(f"gloo: two ranks on {card} took {ms_spawn / 1e3:.2f} s from spawn to join")
+    # both dryruns as a user calls them, no devices named: one rank on
+    # cuda:0 in an NCCL group
+    for name, mod in (("sharded_ba", sharded_ba), ("sharded_store", sharded_store)):
+        (res,), ms = stopwatch(lambda mod=mod, name=name: mod.dryrun(
+            1, workdir=os.path.join(run_dir, f"dryrun_{name}")))
+        if (not np.isfinite(res["error"]) or res["iterations"] != 2
+                or (res["device"], res["backend"]) != ("cuda:0", "nccl")):
+            fail(f"{name}.dryrun(1): {res}")
+        say(f"dryrun: {name}.dryrun(1) by default on {res['device']} ({res['backend']}): error "
+            f"{res['error']:.8g}, {res['iterations']} iterations, {ms / 1e3:.2f} s from spawn to "
+            "join: ok")
+    k1_rank = k1_hold(bench_prep(problem, variables, pyr, bcfg, problem.photo_edges.i0.shape[0] // 2),
+                      tuple(bcfg.photo_factor_weights), photometric.level_ratios(pyr), card, peaks,
+                      "one rank's prep inputs (E=12 of 24)")
+    return dict(launches=launches, k1_mesh=k1_mesh, k1_rank=k1_rank)
+
+
+def extras_path(dev, card: str, peaks, mapper) -> dict:
+    """Phase 12: the default-off paths and multi-device BA."""
+    t0 = time.perf_counter()
+    ab = mega_and_schur(dev, card, peaks)
+    cd = multi_device(dev, card, peaks, mapper, ab["bench"])
+    secs = time.perf_counter() - t0
+    say(f"phase 12 took {secs:.1f} s")
+    k1s = (ab["k1"], cd["k1_mesh"], cd["k1_rank"])
+    return dict(launches={**ab["launches"], **cd["launches"]},
+                max_abs_err=max(k["max_abs_err"] for k in k1s),
+                max_rel_err=max(k["max_rel_err"] for k in k1s),
+                mega_shape=ab["k1"]["shape"], mesh_shape=cd["k1_mesh"]["shape"],
+                rank_shape=cd["k1_rank"]["shape"], seconds=secs)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old-source", default=None,
@@ -2152,7 +2605,11 @@ def main() -> None:
     evaled = eval_path(dev, card, (peak_bw, peak_flops))
     max_err, max_rel = max(max_err, evaled["max_abs_err"]), max(max_rel, evaled["max_rel_err"])
 
-    # ---- 12. result ----
+    # ---- 12. the default-off paths and multi-device BA ----
+    extra = extras_path(dev, card, (peak_bw, peak_flops), mapped.pop("mapper"))
+    max_err, max_rel = max(max_err, extra["max_abs_err"]), max(max_rel, extra["max_rel_err"])
+
+    # ---- 13. result ----
     kernels = [{
         "name": "photo_reduce",
         "route": "cuda",
@@ -2160,11 +2617,13 @@ def main() -> None:
         "replaces": "sage_slam_tpu/ops/pallas_kernels.py:118",
         "launches": (launches["photo_reduce"] + mapped["launches"] + slammed["launches"]
                      + looped["launches"] + looped["driver_launches"] + demoed["launches"]
-                     + trained["launches"] + sum(evaled["launches"].values())),
+                     + trained["launches"] + sum(evaled["launches"].values())
+                     + sum(extra["launches"].values())),
         "launches_by_path": {"run_ba": launches["photo_reduce"], "mapper": mapped["launches"],
                              "slam": slammed["launches"], "loop": looped["launches"],
                              "driver": looped["driver_launches"], "demo": demoed["launches"],
-                             "train": trained["launches"], **evaled["launches"]},
+                             "train": trained["launches"], **evaled["launches"],
+                             **extra["launches"]},
         "max_abs_err": max_err,
         "max_rel_err": max_rel,
         "matched": True,
@@ -2181,6 +2640,9 @@ def main() -> None:
         "demo_shape": demoed["shape"],
         "make_eval_shape": evaled["make_eval_shape"],
         "gt_probe_shape": evaled["gt_probe_shape"],
+        "mega_shape": extra["mega_shape"],
+        "mesh_shape": extra["mesh_shape"],
+        "gloo_rank_shape": extra["rank_shape"],
         "train_shape": {k: trained[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
                                                  "bound_by")},
         "backward": trained["backward"],

@@ -91,21 +91,25 @@ def _edges(e, device) -> EdgeTable:
 
 def problem_from_numpy(p, device=None) -> BAProblem:
     """A BAProblem from the JAX package's problem fields. Gather tables
-    that the JAX side already prepared are carried over; otherwise
-    solver.ba.prepare_problem builds them. The default-off mega tables
-    are not ported and must be absent."""
+    that the JAX side already prepared (the mega tables too, where it
+    built them) are carried over; otherwise solver.ba.prepare_problem
+    builds them."""
     dev = resolve_device(device)
     w = _field(p, "window")
-    for name in ("mega_fg", "mega_feat"):
-        if _opt_field(w, name) is not None:
-            raise NotImplementedError(f"window.{name}: mega tables are not ported")
-    base = {f: _tensor(_field(w, f), dev) for f in WindowData._fields[:9]}
+    base = {
+        f: _tensor(_field(w, f), dev)
+        for f in ("loc1d", "homo", "bias_flat", "jac_flat", "feat_pyr", "grad_pyr",
+                  "src_feats", "avg_sq_bias", "mask_flat")
+    }
     prepared = {}
     if _opt_field(w, "packed_fg") is not None:
         for f in ("packed_fg", "packed_feat", "bias_at", "jac_at"):
             prepared[f] = _tensor(_field(w, f), dev)
         for f in ("dense_fg", "dense_feat"):
             prepared[f] = tuple(_tensor(t, dev) for t in _field(w, f))
+        for f in ("mega_fg", "mega_feat"):
+            if _opt_field(w, f) is not None:
+                prepared[f] = _tensor(_field(w, f), dev)
     window = WindowData(**base, **prepared)
     pr = _field(p, "priors")
     priors = PriorTable(

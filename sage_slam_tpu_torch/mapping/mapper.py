@@ -11,7 +11,9 @@ sage_slam_tpu/mapping/mapper.py).
   ways per connection; enqueue_frame (pose-only aux frames) and
   enqueue_link (loop links),
 * mapping_step: one windowed damped-GN solve over the keyframes incident to
-  the window's edges (the compact step), merged back into the store.
+  the window's edges (the compact step), merged back into the store; with
+  ``mesh=`` the same selection, snapshot, merge and edge retirement around
+  an edge-sharded solve at the store's full capacity (parallel/sharded_ba).
 
 Differences from the JAX package:
 
@@ -27,7 +29,10 @@ Differences from the JAX package:
 * Snapshots. The store writes rows in place, so mapping_step clones the
   variables and gathers the compact window under the store lock, then
   solves with the lock released.
-* The sharded step (``mesh=``) is not ported.
+* The sharded step (``mesh=``) honours ``photo_weights``: the JAX package
+  asserts ``photo_weights is None`` there (mapper.py:721), so its
+  coarse-to-fine refine cannot run on a mesh; the port passes the
+  overridden MapperConfig to the sharded solve as the unsharded step does.
 """
 
 from __future__ import annotations
@@ -253,8 +258,8 @@ class Mapper:
         src_feats, the sampling tables (K=1), bias_at and jac_at.
         serialize.load_state rebuilds a restored row's tables with it."""
         packed_fg, packed_feat, dense_fg, dense_feat = photometric.build_photo_tables(
-            feat_pyr, grad_pyr, self.mask_flat, self.cam_pyr
-        )
+            feat_pyr, grad_pyr, self.mask_flat, self.cam_pyr, mega=False
+        )[:4]
         return dict(
             src_feats=photometric.sample_source_features(feat_pyr, loc1d, self.cam_pyr),
             packed_fg=packed_fg, packed_feat=packed_feat, dense_fg=dense_fg, dense_feat=dense_feat,
@@ -484,10 +489,12 @@ class Mapper:
             pose_valid=t(pose_valid), pose_target=SE3.identity((k,), device=self.device),
         )
 
-    def build_problem(self, window_lo: int = 0, num_active: int | None = None) -> ba.BAProblem:
-        """The full-capacity problem of the edges incident to the window."""
+    def build_problem(self, window_lo: int = 0, num_active: int | None = None,
+                      selection=None) -> ba.BAProblem:
+        """The full-capacity problem of the edges incident to the window
+        (or of the edge ``selection`` given)."""
         n_act = num_active if num_active is not None else self.store.num_active
-        ph_sel, ge_sel, rp_sel = self._active_edge_selection(window_lo)
+        ph_sel, ge_sel, rp_sel = selection or self._active_edge_selection(window_lo)
         return ba.BAProblem(
             window=self.store.window_data(self.mask_flat),
             photo_edges=self._edge_table([self.photo_edges[n] for n in ph_sel]),
@@ -551,6 +558,33 @@ class Mapper:
         )
         return compact, v_c, torch.as_tensor(update_mask, device=dev), ids_t, (ph_sel, ge_sel, rp_sel)
 
+    def _mesh_step_inputs(self, snap_n: int, snap_vars: Variables, full: bool):
+        """Under the lock: the full-capacity problem of the window-incident
+        edges, the update mask (sized to the active bucket, then padded to
+        the capacity) and the edge selection, for the sharded step."""
+        k = self.store.capacity
+        lo = 0 if full else max(0, snap_n - self.cfg.mapper.window_size)
+        kb = min(k, _round_up(snap_n, 8))
+        active = np.zeros(kb, np.float32)
+        active[lo:snap_n] = 1.0
+        active[self.store.reinitialize_count[:kb] > 0] = 0.0
+        update_mask = np.zeros(k, np.float32)
+        update_mask[:kb] = active
+        if self.store.aux[:kb].any():
+            comp = np.ones((kb, 7 + snap_vars.code_size), np.float32)
+            comp[self.store.aux[:kb], 6:] = 0.0
+            update_mask = np.zeros((k, comp.shape[1]), np.float32)
+            update_mask[:kb] = active[:, None] * comp
+        selection = self._active_edge_selection(lo)
+        problem = self.build_problem(num_active=snap_n, selection=selection)
+        return problem, torch.as_tensor(update_mask, device=self.device), selection
+
+    def mapping_step_sharded(self, mesh, max_iters: Optional[int] = None,
+                             full: bool = False) -> float:
+        """The mapping step over a process group (see mapping_step's
+        ``mesh``)."""
+        return self.mapping_step(max_iters=max_iters, full=full, mesh=mesh)
+
     def mapping_step(self, max_iters: Optional[int] = None, full: bool = False, mesh=None,
                      photo_weights: Optional[Tuple[float, ...]] = None) -> float:
         """One windowed BA solve + write-back. Returns the final graph
@@ -562,9 +596,13 @@ class Mapper:
         ``photo_weights`` overrides the per-level photometric weights of
         this solve. The problem and variables are taken under the store
         lock, the solve runs with it released, and the result is merged
-        back under it (KeyframeStore.merge_variables)."""
-        if mesh is not None:
-            raise NotImplementedError("the sharded mapping step (mesh=) is not ported")
+        back under it (KeyframeStore.merge_variables).
+
+        ``mesh`` (a parallel.sharded_ba.Mesh on this mapper's device) runs
+        the solve edge-sharded over its process group, on the store's
+        full-capacity tables: every rank must hold the same map and make
+        the same call. The rows outside the active bucket are frozen and
+        solve as identity blocks."""
         with self.store.lock:
             if self.store.num_active < 2:
                 self.last_step_iters = 0
@@ -573,9 +611,14 @@ class Mapper:
                 self.last_step_photo_pairs = []
                 return 0.0
             snap_n, snap_version, snap_vars = self.store.snapshot()
-            problem, v_c, update_mask, ids, selection = self._compact_step_inputs(
-                snap_n, snap_vars, full
-            )
+            if mesh is None:
+                problem, v_c, update_mask, ids, selection = self._compact_step_inputs(
+                    snap_n, snap_vars, full
+                )
+            else:
+                # the store's own tables (views): rows written during the
+                # solve belong to no selected edge and are frozen
+                problem, update_mask, selection = self._mesh_step_inputs(snap_n, snap_vars, full)
 
         if self.solve_hook is not None:
             self.solve_hook()
@@ -583,16 +626,24 @@ class Mapper:
         mcfg = self.cfg.mapper
         if photo_weights is not None:
             mcfg = dataclasses.replace(mcfg, photo_factor_weights=tuple(photo_weights))
-        vs, err, iters, conv = ba.run_ba(
-            v_c, problem, self.cam_pyr, mcfg, update_mask,
-            max_iters or mcfg.max_gn_iters, use_conv=full,
-        )
+        if mesh is None:
+            vs, err, iters, conv = ba.run_ba(
+                v_c, problem, self.cam_pyr, mcfg, update_mask,
+                max_iters or mcfg.max_gn_iters, use_conv=full,
+            )
+            v_full = snap_vars
+            v_full.pose.rot[ids] = vs.pose.rot
+            v_full.pose.trans[ids] = vs.pose.trans
+            v_full.code[ids] = vs.code
+            v_full.scale[ids] = vs.scale
+        else:
+            from ..parallel import sharded_ba
+
+            v_full, err, iters, conv = sharded_ba.sharded_run_ba(
+                snap_vars, sharded_ba.shard_problem(problem, mesh), self.cam_pyr, mcfg,
+                update_mask, mesh, max_iters or mcfg.max_gn_iters, use_conv=full,
+            )
         err = float(err)  # the one host read of the step, outside the lock
-        v_full = snap_vars
-        v_full.pose.rot[ids] = vs.pose.rot
-        v_full.pose.trans[ids] = vs.pose.trans
-        v_full.code[ids] = vs.code
-        v_full.scale[ids] = vs.scale
         with self.store.lock:
             self.store.merge_variables(v_full, snap_version, snap_n)
             # a reinitialized keyframe is released after one held step

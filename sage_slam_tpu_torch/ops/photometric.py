@@ -18,8 +18,9 @@ Tables: the target frame is sampled from channel-major quad-packed tables
 (``packed_fg [4*(3C+1), K*Tq]``, ``packed_feat [4*(C+1), K*Tq]``, the
 full-res validity mask folded in as the last row of each corner block) and,
 for the coarse levels of at most DENSE_MAX_PIXELS pixels, from dense
-per-frame tables sampled by hat-weight matmuls. The JAX package's default-
-off "mega" tables (levels 0+1 in one row) are not ported.
+per-frame tables sampled by hat-weight matmuls. With USE_MEGA_TABLES on
+(off by default, as in the JAX package), levels 0 and 1 and the mask come
+from one wider "mega" row per point (geometry/interp.build_mega01).
 """
 
 from __future__ import annotations
@@ -53,6 +54,26 @@ class PhotoShared(NamedTuple):
     packed_feat: torch.Tensor | None = None  # [4*(C+1), K*Tq]
     dense_fg: tuple = ()  # per dense level: [K, 3C, M_l]
     dense_feat: tuple = ()  # per dense level: [K, C, M_l]
+    # levels 0+1 and the mask in one gather row (interp.build_mega01):
+    # [4*(3C+1)+9*3C+2, K*R] / [4*(C+1)+9*C+2, K*R], R = (w0+1)*(h0+1)
+    mega_fg: torch.Tensor | None = None
+    mega_feat: torch.Tensor | None = None
+
+
+# Fold levels 0+1 into one wide gather row (interp.build_mega01). Off by
+# default, as in the JAX package; a module flag like JAX's.
+USE_MEGA_TABLES = False
+
+
+def _mega_ok(cam_pyr: CameraPyramid) -> bool:
+    """Mega tables need level 1 at the exact half resolution of level 0
+    (the 3x3-patch containment argument of interp.build_mega01)."""
+    return (
+        USE_MEGA_TABLES
+        and cam_pyr.levels >= 2
+        and cam_pyr[1].width * 2 == cam_pyr[0].width
+        and cam_pyr[1].height * 2 == cam_pyr[0].height
+    )
 
 
 def single_frame_shared(bias_flat, jac_flat, feat_pyr, grad_pyr, mask_flat,
@@ -111,10 +132,13 @@ def build_photo_tables(
     grad_pyr: torch.Tensor,  # [2, C, K*T]
     mask_flat: torch.Tensor,  # [HW]
     cam_pyr: CameraPyramid,
+    mega: bool = True,
 ):
     """Target-sampling tables -> (packed_fg [4*(3C+1), K*Tq],
-    packed_feat [4*(C+1), K*Tq], dense_fg, dense_feat), channel-major and
-    contiguous."""
+    packed_feat [4*(C+1), K*Tq], dense_fg, dense_feat, mega_fg, mega_feat),
+    channel-major and contiguous; the mega tables are None unless
+    _mega_ok, or when ``mega`` is False (a caller that keeps only the
+    per-level tables)."""
     c, m = feat_pyr.shape
     t = cam_pyr.total_pixels
     k = m // t
@@ -140,12 +164,29 @@ def build_photo_tables(
         off = cam_pyr.level_offsets[lvl]
         npx = cam_pyr[lvl].num_pixels
         dense_feat.append(featT[:, off : off + npx].transpose(1, 2).contiguous())
-    return packed_fg, packed_feat, tuple(dense_fg), tuple(dense_feat)
+    mega_fg = mega_feat = None
+    if mega and _mega_ok(cam_pyr):
+        cam0, cam1 = cam_pyr[0], cam_pyr[1]
+        off1 = cam_pyr.level_offsets[1]
+        m1 = cam1.num_pixels
+        mega_fg = interp.build_mega01(
+            torch.cat([rows_fg[:, :hw], mask_col[:, :hw]], dim=-1),
+            rows_fg[:, off1 : off1 + m1], cam0.width, cam0.height,
+        )
+        mega_feat = interp.build_mega01(
+            torch.cat([featT[:, :hw], mask_col[:, :hw]], dim=-1),
+            featT[:, off1 : off1 + m1], cam0.width, cam0.height,
+        )
+    return (packed_fg, packed_feat, tuple(dense_fg), tuple(dense_feat), mega_fg,
+            mega_feat)
 
 
 def _tables(shared: PhotoShared, cam_pyr: CameraPyramid):
+    """(packed_fg, packed_feat, dense_fg, dense_feat, mega_fg, mega_feat),
+    built here when the shared tables are unset."""
     if shared.packed_fg is not None:
-        return shared.packed_fg, shared.packed_feat, shared.dense_fg, shared.dense_feat
+        return (shared.packed_fg, shared.packed_feat, shared.dense_fg, shared.dense_feat,
+                shared.mega_fg, shared.mega_feat)
     return build_photo_tables(
         shared.feat_pyr, shared.grad_pyr, shared.mask_flat, cam_pyr
     )
@@ -160,13 +201,15 @@ def _target_samples_cm(
     packedT: torch.Tensor,
     dense: tuple,
     c_out: int,
+    mega: torch.Tensor | None = None,
     soft: bool = False,
 ):
     """Sample the target frame at the warped full-res coords for every
     pyramid level -> (list of [E, c_out, N] per level, within [E, N]).
-    Level 0 comes from one quad gather that also yields the folded mask;
-    the dense coarse levels from hat-weight matmuls; the rest from one
-    quad gather each."""
+    With a mega table, levels 0 and 1 and the folded mask come from one
+    column gather per point; otherwise level 0 comes from one quad gather
+    that also yields the folded mask. The dense coarse levels come from
+    hat-weight matmuls; the rest from one quad gather each."""
     cam0 = cam_pyr[0]
     cw = packedT.shape[0] // 4
     has_mask = cw == c_out + 1
@@ -176,9 +219,28 @@ def _target_samples_cm(
     qbase = frame * cam_pyr.total_quad_rows
     out = []
     within = None
+    mega_rows = None
     for lvl in range(cam_pyr.levels):
         cam_l = cam_pyr[lvl]
         ul, vl = interp.level_coords(u1, v1, cam_l.fx / cam0.fx, cam_l.fy / cam0.fy)
+        if mega is not None and lvl == 0:
+            r = (cam0.width + 1) * (cam0.height + 1)
+            mega_rows, wts, _, _ = interp.mega_gather(
+                mega, ul, vl, cam0.width, cam0.height, frame * r
+            )
+            out.append(interp.combine_quad_cm(mega_rows, wts, c_out, c_out + 1))
+            if soft:
+                within = interp.quad_bilinear_select_cm(mega_rows, wts, c_out, c_out + 1)
+            else:
+                within = interp.quad_nearest_select_cm(
+                    mega_rows, ul, vl, cam0.width, cam0.height, c_out, c_out + 1
+                )
+            continue
+        if mega is not None and lvl == 1:
+            out.append(interp.mega_level1(
+                mega_rows, ul, vl, cam_l.width, cam_l.height, c_out + 1, c_out
+            ))
+            continue
         if lvl >= dense_start:
             rows_cm = dense[lvl - dense_start][frame]  # [E, c_out, M_l]
             out.append(
@@ -278,10 +340,10 @@ def photometric_error(
         p0, p1, code0, scale0, kf0, shared, cam0, eps
     )
     c = shared.feat_pyr.shape[0]
-    _, packed_feat, _, dense_feat = _tables(shared, cam_pyr)
+    _, packed_feat, _, dense_feat, _, mega_feat = _tables(shared, cam_pyr)
     f1s, within = _target_samples_cm(
         shared.mask_flat, cam_pyr, u1, v1, fr1.base_pyr, packed_feat,
-        dense_feat, c, soft=soft,
+        dense_feat, c, mega_feat, soft=soft,
     )
     g2 = (pos * within) ** 2
     err_total = torch.zeros_like(g2[:, 0])
@@ -345,10 +407,10 @@ def photo_prep(
         p0, p1, code0, scale0, kf0, shared, cam0, eps
     )
     c = shared.feat_pyr.shape[0]
-    packed_fg, _, dense_fg, _ = _tables(shared, cam_pyr)
+    packed_fg, _, dense_fg, _, mega_fg, _ = _tables(shared, cam_pyr)
     fgs, within = _target_samples_cm(
         shared.mask_flat, cam_pyr, u1, v1, fr1.base_pyr, packed_fg,
-        dense_fg, 3 * c, soft=soft,
+        dense_fg, 3 * c, mega_fg, soft=soft,
     )
     gate = pos * within  # [E, N]
 

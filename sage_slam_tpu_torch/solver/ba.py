@@ -50,6 +50,9 @@ class WindowData(NamedTuple):
     jac_at: torch.Tensor | None = None  # [K, N, CS]
     dense_fg: tuple = ()  # per dense level: [K, 3C, M_l]
     dense_feat: tuple = ()  # per dense level: [K, C, M_l]
+    # levels 0+1 in one gather row (photometric.USE_MEGA_TABLES, else None)
+    mega_fg: torch.Tensor | None = None  # [4*(3C+1)+9*3C+2, K*R]
+    mega_feat: torch.Tensor | None = None  # [4*(C+1)+9*C+2, K*R]
 
 
 class EdgeTable(NamedTuple):
@@ -111,8 +114,10 @@ def prepare_problem(problem: BAProblem, cam_pyr: CameraPyramid) -> BAProblem:
     if w.packed_fg is not None:
         return problem
     c = w.feat_pyr.shape[0]
-    packed_fg, packed_feat, dense_fg, dense_feat = photometric.build_photo_tables(
-        w.feat_pyr.reshape(c, -1), w.grad_pyr.reshape(2, c, -1), w.mask_flat, cam_pyr
+    packed_fg, packed_feat, dense_fg, dense_feat, mega_fg, mega_feat = (
+        photometric.build_photo_tables(
+            w.feat_pyr.reshape(c, -1), w.grad_pyr.reshape(2, c, -1), w.mask_flat, cam_pyr
+        )
     )
     loc = w.loc1d.long()
     kf = torch.arange(loc.shape[0], device=loc.device)[:, None]
@@ -124,6 +129,8 @@ def prepare_problem(problem: BAProblem, cam_pyr: CameraPyramid) -> BAProblem:
             jac_at=w.jac_flat[kf, loc],  # [K, N, CS]
             dense_fg=dense_fg,
             dense_feat=dense_feat,
+            mega_fg=mega_fg,
+            mega_feat=mega_feat,
         )
     )
 
@@ -131,7 +138,7 @@ def prepare_problem(problem: BAProblem, cam_pyr: CameraPyramid) -> BAProblem:
 def slice_problem_keyframes(problem: BAProblem, kb: int, cam_pyr: CameraPyramid) -> BAProblem:
     """Restrict a full-capacity problem to its first ``kb`` keyframes
     (views, no copies). Edge tables are untouched: every edge index must be
-    below kb."""
+    below kb. The mega tables are dropped, as in the JAX package."""
     return _select_keyframes(problem, slice(0, kb), None)
 
 
@@ -144,7 +151,7 @@ def compact_problem_keyframes(problem: BAProblem, ids: torch.Tensor,
     the window-incident keyframes, not by the store. Edge tables must
     already be in compact indices; ``pad_valid`` [kc] zeroes the priors of
     padding rows, so the compact total error differs from the full one by
-    a variable-independent constant."""
+    a variable-independent constant. The mega tables are dropped."""
     return _select_keyframes(problem, ids, pad_valid)
 
 
@@ -173,6 +180,8 @@ def _select_keyframes(problem: BAProblem, sel, pad_valid) -> BAProblem:
         jac_at=None if w.jac_at is None else w.jac_at[sel],
         dense_fg=tuple(d[sel] for d in w.dense_fg),
         dense_feat=tuple(d[sel] for d in w.dense_feat),
+        mega_fg=None,
+        mega_feat=None,
     )
     pr = problem.priors
     gate = (lambda x: x[sel]) if pad_valid is None else (lambda x: x[sel] * pad_valid)
@@ -212,6 +221,8 @@ def _photo_inputs(window: WindowData, e: EdgeTable):
         packed_feat=window.packed_feat,
         dense_fg=window.dense_fg,
         dense_feat=window.dense_feat,
+        mega_fg=window.mega_fg,
+        mega_feat=window.mega_feat,
     )
     return kf0, fr1, shared
 
@@ -470,22 +481,6 @@ def run_ba(
     _check(variables, problem, cfg)
     iters = max_iters if max_iters is not None else cfg.max_gn_iters
     problem = prepare_problem(problem, cam_pyr)
-    conv_fn = None
-    if use_conv:
-
-        def conv_fn(delta, grad):
-            return torch.logical_or(
-                torch.amax(torch.abs(grad)) < cfg.relin_grad_thresh,
-                torch.amax(torch.abs(delta)) < cfg.relin_param_inc_thresh,
-            )
-
-    solver = getattr(cfg, "solver", "dense")
-    if solver == "auto":
-        solver = (
-            "schur"
-            if variables.num_kf >= getattr(cfg, "schur_min_keyframes", 48)
-            else "dense"
-        )
     return graph.lm_loop(
         variables,
         lambda v: linearize(v, problem, cam_pyr, cfg),
@@ -497,6 +492,28 @@ def run_ba(
         max_damp=cfg.gn_max_damp,
         damp_dec=cfg.gn_damp_dec_factor,
         damp_inc=cfg.gn_damp_inc_factor,
-        conv_fn=conv_fn,
-        solver=solver,
+        conv_fn=relin_conv(cfg) if use_conv else None,
+        solver=resolve_solver(cfg, variables.num_kf),
     )
+
+
+def relin_conv(cfg):
+    """The LM's early exit: an accepted step whose gradient or parameter
+    increment drops below cfg.relin_grad_thresh / relin_param_inc_thresh."""
+
+    def conv_fn(delta, grad):
+        return torch.logical_or(
+            torch.amax(torch.abs(grad)) < cfg.relin_grad_thresh,
+            torch.amax(torch.abs(delta)) < cfg.relin_param_inc_thresh,
+        )
+
+    return conv_fn
+
+
+def resolve_solver(cfg, num_kf: int) -> str:
+    """cfg.solver, with "auto" taking "schur" at num_kf >=
+    cfg.schur_min_keyframes and "dense" below."""
+    solver = getattr(cfg, "solver", "dense")
+    if solver == "auto":
+        return "schur" if num_kf >= getattr(cfg, "schur_min_keyframes", 48) else "dense"
+    return solver

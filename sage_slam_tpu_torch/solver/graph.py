@@ -6,7 +6,8 @@ Per-keyframe variable block (dim 7 + CS):
   [6:6+CS] depth code, [6+CS] scale.
 
 Edge blocks are scatter-added into one dense block Hessian over the window
-and solved with a damped Cholesky.
+and solved with a damped Cholesky, either whole ("dense") or by first
+eliminating every keyframe's code and scale block ("schur").
 """
 
 from __future__ import annotations
@@ -105,23 +106,69 @@ def psd_correct(ata: torch.Tensor) -> torch.Tensor:
     return psd_bump(ata)
 
 
-def _damped_solve(h, b, damping: float, min_damp: float, free):
+def schur_solve(h: torch.Tensor, b: torch.Tensor, num_kf: int, block_dim: int):
+    """Solve H delta = b by eliminating every keyframe's (code, scale)
+    block first -> (delta [D], ok). H is the damped, masked SPD system
+    (frozen rows are identity).
+
+    Per keyframe, the pose dims p (6) and the code+scale dims c
+    (block_dim - 6) partition the system:
+
+        [App Apc] [dp]   [bp]
+        [Acp Acc] [dc] = [bc]
+
+    dc is eliminated through a Cholesky of Acc, the reduced 6K pose
+    system S = App - Apc Acc^-1 Acp is solved densely, then dc is
+    recovered. Acc is the FULL cross-coupled block: geometric edges couple
+    the codes of two keyframes, so it is not block-diagonal, and the
+    result equals the dense solve up to float32 factorization roundoff.
+    ``ok`` is False when either factorization failed (JAX's NaNs)."""
+    dev = h.device
+    kf = torch.arange(num_kf, device=dev)[:, None] * block_dim
+    pose_idx = (kf + torch.arange(6, device=dev)).reshape(-1)
+    cs_idx = (kf + torch.arange(6, block_dim, device=dev)).reshape(-1)
+    h_p = h[pose_idx]
+    app = h_p[:, pose_idx]  # [6K, 6K]
+    apc = h_p[:, cs_idx]  # [6K, (bd-6)K]
+    acc = h[cs_idx][:, cs_idx]
+    bp, bc = b[pose_idx], b[cs_idx]
+    u_cc, info_cc = torch.linalg.cholesky_ex(acc, upper=True)
+    x = torch.cholesky_solve(apc.T.contiguous(), u_cc, upper=True)  # Acc^-1 Acp
+    y = torch.cholesky_solve(bc[:, None], u_cc, upper=True)[:, 0]
+    s = app - apc @ x
+    rhs = bp - (apc @ y[:, None])[:, 0]
+    u_s, info_s = torch.linalg.cholesky_ex(s, upper=True)
+    dp = torch.cholesky_solve(rhs[:, None], u_s, upper=True)[:, 0]
+    dc = y - (x @ dp[:, None])[:, 0]
+    delta = torch.zeros_like(b)
+    delta[pose_idx] = dp
+    delta[cs_idx] = dc
+    return delta, (info_cc == 0) & (info_s == 0)
+
+
+def _damped_solve(h, b, damping: float, min_damp: float, free, solver: str = "dense",
+                  num_kf: int = 0, block_dim: int = 0):
     """Solve (H + damping diag(H) + min_damp I) delta = b on the free
     components (frozen rows/cols become identity with zero rhs).
 
     JAX's cho_factor turns a failed factorization into NaNs, which the
     isfinite mask then zeroes. torch.linalg.cholesky raises instead and
     cholesky_ex returns a partial factor that is not NaN, so the factor's
-    ``info`` decides: delta is 0 whenever info != 0. The upper factor is
-    used, as cho_factor's default reads the upper triangle."""
+    ``info`` decides: delta is 0 whenever a factorization failed. The
+    upper factor is used, as cho_factor's default reads the upper
+    triangle."""
     dim = h.shape[-1]
     eye = torch.eye(dim, dtype=h.dtype, device=h.device)
     h_damped = h + torch.diag(damping * torch.diagonal(h)) + min_damp * eye
     h_masked = h_damped * free[:, None] * free[None, :] + torch.diag(1.0 - free)
     b_masked = b * free
-    u, info = torch.linalg.cholesky_ex(h_masked, upper=True)
-    delta = torch.cholesky_solve(b_masked[:, None], u, upper=True)[:, 0]
-    delta = torch.where(info == 0, delta, torch.zeros_like(delta))
+    if solver == "schur":
+        delta, ok = schur_solve(h_masked, b_masked, num_kf, block_dim)
+    else:
+        u, info = torch.linalg.cholesky_ex(h_masked, upper=True)
+        delta = torch.cholesky_solve(b_masked[:, None], u, upper=True)[:, 0]
+        ok = info == 0
+    delta = torch.where(ok, delta, torch.zeros_like(delta))
     delta = torch.where(torch.isfinite(delta), delta, torch.zeros_like(delta))
     return delta, b_masked
 
@@ -139,7 +186,7 @@ def lm_loop(
     damp_inc: float = 10.0,
     min_error_dec: float = 0.0,
     conv_fn=None,  # (delta [K, bd], grad [K, bd]) -> bool; on accepted step
-    solver: str = "dense",
+    solver: str = "dense",  # "dense" | "schur" (schur_solve above)
 ):
     """Deferred-acceptance damped GN (Levenberg-Marquardt) ->
     (variables, error, iterations, converged).
@@ -154,8 +201,8 @@ def lm_loop(
     loop whose accept decision is read on the host once per iteration.
     The damping is kept as a float32 scalar, so the stop test
     ``damping <= max_damp`` sees the same float32 values as in JAX."""
-    if solver != "dense":
-        raise NotImplementedError(f"solver={solver!r}: only 'dense' is ported")
+    if solver not in ("dense", "schur"):
+        raise ValueError(f"solver={solver!r}; expected 'dense' or 'schur'")
     k = variables.num_kf
     bd = variables.block_dim
     dtype = variables.scale.dtype
@@ -181,7 +228,7 @@ def lm_loop(
             damping = max(damping / f32(damp_dec), f32(min_damp))
         else:
             damping = damping * f32(damp_inc)
-        delta, b_masked = _damped_solve(h, b, float(damping), min_damp, free)
+        delta, b_masked = _damped_solve(h, b, float(damping), min_damp, free, solver, k, bd)
         candidate = accepted.apply_delta(delta.reshape(k, bd), update_mask)
         # gate on accept: a post-reject delta is small because the damping
         # is high, not because the graph converged

@@ -1,7 +1,7 @@
 """Port parity of the whole slice: window-BA linearize, total_error and
 run_ba against the JAX package on the same inputs (CPU), plus the port's
 own contracts (LM Cholesky-failure handling, config and device checks,
-the schur solver refused, the synthetic problems)."""
+the schur solver against JAX's, the synthetic problems)."""
 
 import dataclasses
 
@@ -157,8 +157,16 @@ def test_config_and_entry_point_contracts():
     assert float(tba.total_error(tv, tpr, tpyr, MapperConfig())) > float(
         tba.total_error(tv, tp, tpyr, MapperConfig())
     )
-    with pytest.raises(NotImplementedError):
-        tba.run_ba(tv, tp, tpyr, MapperConfig(solver="schur"), torch.ones(3), max_iters=1)
+    # solver="schur" runs (tests/test_torch_schur.py holds it in full):
+    # one step against JAX's, at test_run_ba_matches_jax's tolerances
+    out = tba.run_ba(tv, tp, tpyr, MapperConfig(solver="schur"), torch.ones(3), max_iters=1)
+    jcfg = dataclasses.replace(JaxMapperConfig(), solver="schur")
+    out_j = jba.run_ba(v, p, pyr, jcfg, jnp.ones(3), max_iters=1)
+    err0 = float(jba.total_error(v, p, pyr, jcfg))
+    assert out[2] == int(out_j[2]) == 1
+    np.testing.assert_allclose(float(out[1]), float(out_j[1]), rtol=1e-2, atol=1e-7 * err0)
+    np.testing.assert_allclose(out[0].pose.trans.numpy(), np.asarray(out_j[0].pose.trans), atol=2e-6)
+    np.testing.assert_allclose(out[0].code.numpy(), np.asarray(out_j[0].code), atol=1e-6)
 
 
 def test_entry_points_refuse_a_silent_cpu_fallback():

@@ -53,14 +53,17 @@ SLICE_MODULES = [
     "ops/geometric.py",
     # the dense and diagnostic eval slice
     "eval/tsdf.py", "eval/error_budget.py", "eval/gt_probe.py", "demo/make_eval.py",
+    # the default-off paths and multi-device BA
+    "geometry/interp.py", "solver/graph.py", "parallel/__init__.py", "parallel/launch.py",
+    "parallel/sharded_ba.py", "parallel/sharded_store.py",
 ]
 
 
 @pytest.mark.parametrize("rel", SLICE_MODULES)
 def test_mapper_slice_module_is_guarded(rel):
     """Every module of the mapper, tracker / frontend, loop / driver, IO /
-    eval / demo, training and dense / diagnostic eval slices exists and is
-    among the files the guard above walks."""
+    eval / demo, training, dense / diagnostic eval and multi-device slices
+    exists and is among the files the guard above walks."""
     assert ROOT / "sage_slam_tpu_torch" / rel in PORT_FILES
 
 

@@ -332,14 +332,30 @@ def test_windowed_problem_and_full_problem_agree():
     np.testing.assert_allclose(out_full[0].code.numpy(), out_win[0].code.numpy(), atol=1e-5)
 
 
-def test_mapper_contracts():
-    """mesh= is not ported; a single keyframe makes no step; the default
-    device is the card; the store refuses rows past its capacity."""
+def test_mapper_contracts(tmp_path):
+    """A single keyframe makes no step; mesh= (a one-rank gloo group here)
+    takes the sharded step, as JAX's mapping_step_sharded on a 4-device
+    mesh does (test_sharded_ba.py's tolerances: error rtol 1e-4, variables
+    atol 1e-5); the default device is the card; the store refuses rows
+    past its capacity."""
+    from jax.sharding import Mesh as JMesh
+
+    from sage_slam_tpu_torch.parallel import launch
+
     pair = Pair()
-    with pytest.raises(NotImplementedError):
-        pair.tm.mapping_step(mesh=object())
     pair.init()
     assert pair.tm.mapping_step() == 0.0 and pair.tm.last_step_iters == 0
+    with launch.one_rank("cpu", workdir=str(tmp_path)) as mesh:
+        assert pair.tm.mapping_step(mesh=mesh) == 0.0 and pair.tm.last_step_iters == 0
+        for f in (1, 2):
+            pair.add_keyframe(f)
+        err_t = pair.tm.mapping_step(mesh=mesh)
+    err_j = pair.jm.mapping_step_sharded(JMesh(np.array(jax.devices()[:4]), ("e",)))
+    assert pair.tm.last_step_iters == pair.jm.last_step_iters > 0
+    np.testing.assert_allclose(err_t, err_j, rtol=1e-4)
+    _assert_vars_close(pair.tm.store.variables, pair.jm.store.variables, 3, pose_atol=1e-5,
+                       code_atol=1e-5)
+    assert pair.tm.photo_edge_iters == pair.jm.photo_edge_iters
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             tmapper.Mapper(pair.tm.cfg, pair.tm.cam_pyr, pair.scene.mask_out,
