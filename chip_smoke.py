@@ -22,7 +22,8 @@ Phases, each of which exits non-zero on failure:
    kernel durations over 50 wrapper calls; CUDA events around the same 50
    calls beside it, which also count the host's enqueue), the plain
    version's and the library call's, the kernel's bound, and ms per
-   10-iteration run_ba step (CUDA events and host clock after warm-up).
+   10-iteration run_ba step (CUDA events and host clock after warm-up),
+   after the L2 flush's check (flush_probe).
    With ``--old-source PATH`` (an earlier photo_reduce.cu with the
    two-stage C interface: tiles, partial sums) that kernel is built too and
    timed in turns with the current one (old, new, new, old);
@@ -200,13 +201,36 @@ Phases, each of which exits non-zero on failure:
    compact run_ba (tests/test_sharded_ba.py's and
    tests/test_sharded_store.py's tolerances), the two ranks' variables
    bit-equal, each rank's K1 launches equal to the LM iterations; prints
-   each rank's store-table bytes beside store_bytes_per_device; both
-   dryrun(1)s with no devices named must run on cuda:0 in an NCCL group.
+   each rank's store-table bytes beside store_bytes_per_device.
    K1 is held
    and timed at E=24 (mega prep inputs), at phase 6's window under the
    mesh path and at one rank's E=12. Prints the phase's time;
-13. a JSON line listing every kernel, then the card line, then the last
+13. the measuring programs: each program's main run in this process on
+   the card at its JAX program's operating point, its output echoed:
+   entry (entry()'s step and dryrun_multichip(1), whose two dryruns with
+   no devices named must run on cuda:0 in an NCCL group), bench.global_ba,
+   bench.roofline, bench.frontend (64 frames), bench.scaling on one NCCL
+   rank with growth_curve up to 128 keyframes, and on two gloo ranks on
+   the one card without it. Fails unless each program's first line names
+   the card, its lines carry its JAX program's metric names (PROGRAM_METRICS,
+   ROOFLINE_KEYS) with finite values, and K1's launches equal the LM
+   iterations that the program's steps ran, warm-up included (the
+   frontend runs no BA step, so none); K1's launches are read around each
+   program, the spawned ranks' from what they return. K1 is held and timed
+   at the shapes these programs give it beyond the bench point: scaling's
+   rank problem (E=64 on one rank, E=32 a rank on two, N=1024) and
+   growth_curve's 128-keyframe full step (E=284, N=1024), and the L2
+   flush's check (flush_probe) is made again, before the scaling runs;
+14. a JSON line listing every kernel, then the card line, then the last
    line ``{"ok": true, "device": {...}}``.
+
+K1's times (phases 5-13) are device times with a cold L2: a 96 MB scratch
+buffer is read three times before each timed call (flush_l2), which
+leaves the L2 holding clean lines only, the flush's kernels left out; the warm readings
+(back-to-back calls on the same inputs, which the L2 partly serves) are
+printed beside them. A cold reading over K1_MAX_SHARE (105%) of its bound
+fails the script, and so does a plain read (93 MB or 24 MB) timed cold
+that runs over 105% of the card's memory rate (flush_probe, phase 5).
 
 Imports neither JAX nor the JAX package.
 """
@@ -225,13 +249,6 @@ import time
 import numpy as np
 import torch
 
-# Published peaks (NVIDIA data sheets): memory bytes/s, FP32 non-tensor FLOP/s.
-PEAKS = (
-    ("H100 PCIe", 2.0e12, 51e12),
-    ("H100 NVL", 3.9e12, 60e12),
-    ("H100", 3.35e12, 67e12),  # SXM (HBM3), the default entry
-    ("H200", 4.8e12, 67e12),
-)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WEIGHTS = (10.0, 9.0, 8.0, 7.0)
 
@@ -243,21 +260,6 @@ def fail(msg: str) -> None:
 
 def say(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def peaks_for(name: str):
-    for key, bw, flops in PEAKS:
-        if key in name:
-            return key, bw, flops
-    return "H100 (assumed)", 3.35e12, 67e12
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -272,25 +274,184 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def device_ms(fn, reps: int, match: str | None = None) -> float:
-    """Device time of one fn() call: the durations of its kernels (those
-    whose name holds ``match``, else all) summed by torch.profiler over reps
-    calls, divided by reps. Fails if the profiler saw no device time."""
+def _kernel_times(fn, reps: int, between=None) -> dict:
+    """torch.profiler's device microseconds and event counts by kernel name
+    over reps calls of fn(), each preceded by between() when given ->
+    {name: (us, count)}."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            if between is not None:
+                between()
             fn()
         torch.cuda.synchronize()
-    total_us = sum(
-        e.self_device_time_total for e in prof.key_averages()
-        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-        and (match is None or match in e.key)
-    )
+    return {e.key: (e.self_device_time_total, e.count) for e in prof.key_averages()
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA}
+
+
+# Cold-L2 timing: before each timed call a scratch buffer of FLUSH_BYTES
+# (about twice the H100's 50 MB L2) is read FLUSH_PASSES times over, in one
+# kernel (its int32 rows reduced by max, pass after pass, into a small
+# output), so that each call reads its inputs from HBM as a caller that has
+# just run other work does, and finds the L2 holding clean lines only (an
+# overwrite would leave up to 50 MB of dirty lines there, written back
+# during the timed call). The passes re-reference the flush's own lines, so
+# that a replacement policy that resists one-pass scans still gives up the
+# timed call's lines. The flush's own kernel, which no timed function runs,
+# is left out of the sums by name.
+FLUSH_BYTES = 96 << 20
+FLUSH_PASSES = 3
+FLUSH_ROW = 4096
+_flush = {}
+
+
+def _flush_read():
+    torch.amax(_flush["passes"], dim=2, out=_flush["out"])
+
+
+def flush_l2():
+    """Read the scratch buffer -> the flush's kernel names (found once by
+    profiling the flush alone)."""
+    if "passes" not in _flush:
+        rows = FLUSH_BYTES // 4 // FLUSH_ROW
+        buf = torch.ones((rows, FLUSH_ROW), dtype=torch.int32, device="cuda")
+        _flush["passes"] = buf.expand(FLUSH_PASSES, rows, FLUSH_ROW)  # stride 0: the same bytes again
+        _flush["out"] = torch.empty((FLUSH_PASSES, rows), dtype=torch.int32, device="cuda")
+        _flush["keys"] = set(_complete_profile(_flush_read, 1, None, bool, "the L2 flush"))
+    _flush_read()
+    return _flush["keys"]
+
+
+# torch.profiler on the card has returned profiles without some or all of
+# their kernels in whole-script runs, which open hundreds of profiles, and
+# once it did, every later profile of the process came back empty: each
+# measurement takes one profile, and an incomplete one is taken again after
+# a pause, up to PROFILE_TRIES times. KINETO_CONFIG raises kineto's cap on
+# CUPTI activity buffers, in case that cap is what stops it.
+PROFILE_TRIES = 3
+KINETO_CONF = "ACTIVITIES_MAX_GPU_BUFFER_SIZE_MB=1024\n"
+
+
+def _complete_profile(fn, reps: int, between, complete, what: str) -> dict:
+    """_kernel_times(fn, reps, between), taken again until complete(its
+    result) holds; fails after PROFILE_TRIES profiles."""
+    for attempt in range(PROFILE_TRIES):
+        if attempt:
+            time.sleep(attempt)
+        times = _kernel_times(fn, reps, between)
+        if complete(times):
+            return times
+        say(f"device_ms: profile {attempt + 1} of {what} is incomplete ({len(times)} kernel names "
+            "recorded); profiling again")
+    fail(f"torch.profiler recorded no complete profile of {what} in {PROFILE_TRIES} tries")
+
+
+def device_ms(fn, reps: int, match: str | None = None, cold: bool = False) -> float:
+    """Device time of one fn() call: the durations of its kernels (those
+    whose name holds ``match``, else all) from one torch.profiler profile
+    of reps calls, each kernel's mean duration times its calls per fn()
+    call. ``cold`` flushes the L2 before each call (flush_l2) and leaves
+    the flush's kernel out; it fails if fn itself runs a kernel of the
+    flush's name (more flush events than flushes). A profile without a
+    kernel of fn or, cold, without the flush is taken again
+    (PROFILE_TRIES). The profiler drops events now and then: each kernel's
+    calls per fn() call are its events over the calls recorded (the
+    flushes' events when cold, else reps), and a profile short of events is
+    said so. Fails if no complete profile came."""
+    what = match or "the plain version"
+    fn()  # warm-up
+    skip = flush_l2() if cold else set()
+
+    def complete(t):
+        return skip <= set(t) and any(k not in skip and (match is None or match in k) for k in t)
+
+    times = _complete_profile(fn, reps, flush_l2 if cold else None, complete, what)
+    for key in skip:
+        if times[key][1] > reps:
+            fail(f"the timed function runs the L2 flush's kernel {key[:80]} "
+                 f"({times[key][1]} events for {reps} flushes)")
+    # the calls whose events the profile holds: one flush each when cold
+    calls = min(times[key][1] for key in skip) if cold else reps
+    timed = {k: v for k, v in times.items() if k not in skip and (match is None or match in k)}
+    total_us, short = 0.0, 0
+    for key, (us, count) in timed.items():
+        per_call = max(1, round(count / calls))
+        short += count != per_call * reps
+        total_us += us / count * per_call
+    if short:
+        say(f"device_ms: the profile of {what} lacks events of {short} of {len(timed)} kernel names "
+            f"(flushes recorded: {calls if cold else 'none'} of {reps}); each kernel's mean is used")
     if total_us <= 0:
-        fail(f"torch.profiler recorded no device time for {match or 'the plain version'}")
-    return total_us / 1e3 / reps
+        fail(f"torch.profiler recorded no device time for {what}")
+    return total_us / 1e3
+
+
+# a K1 reading over this share of its bound is refused: no card beats its
+# own memory rate, so the timing or the bound's byte count is wrong
+K1_MAX_SHARE = 1.05
+
+
+def k1_times(run_kernel, run_plain, run_library, bound_ms: float, label: str, reps: int = 50) -> dict:
+    """K1, its plain version and the library call timed cold (flush_l2
+    between calls) and warm (back-to-back calls on the same inputs) ->
+    {ms, plain_ms, library_ms, warm_ms, warm_plain_ms, warm_library_ms}.
+    Fails if K1's cold reading is over K1_MAX_SHARE of its bound. Launches
+    made here are not counted."""
+    from sage_slam_tpu_torch.ops import photo_reduce as pr
+
+    saved = pr.photo_reduce.launches
+    for fn in (run_kernel, run_plain, run_library):
+        fn()
+    out = dict(
+        ms=device_ms(run_kernel, reps, "photo_reduce", cold=True),
+        plain_ms=device_ms(run_plain, reps, cold=True),
+        library_ms=device_ms(run_library, reps, cold=True),
+        warm_ms=device_ms(run_kernel, reps, "photo_reduce"),
+        warm_plain_ms=device_ms(run_plain, reps),
+        warm_library_ms=device_ms(run_library, reps),
+    )
+    pr.photo_reduce.launches = saved
+    if bound_ms / out["ms"] > K1_MAX_SHARE:
+        fail(f"K1 at {label}: cold reading {out['ms']:.6f} ms is {bound_ms / out['ms']:.1%} of its "
+             f"bound {bound_ms:.6f} ms (over {K1_MAX_SHARE:.0%})")
+    return out
+
+
+# the flush's check: plain reads (float32 rows summed) timed as K1 is, of
+# the bench point's input bytes (93 MB: a stream over the L2's size, which
+# the L2 cannot serve warm either, so cold and warm should agree unless the
+# flush leaves work behind) and of 24 MB (which the L2 holds warm)
+PROBE_ROW = 1024
+PROBE_ROWS = (22_750, 5_860)
+
+
+def flush_probe(peak_bw: float, card: str) -> list:
+    """Each PROBE_ROWS read timed cold (flush_l2 before each call) and
+    warm -> per read its bytes, ms and GB/s both ways. Fails if a cold
+    rate is over K1_MAX_SHARE of the card's memory rate: the flush would
+    not have emptied the L2."""
+    out = []
+    for rows in PROBE_ROWS:
+        x = torch.ones((rows, PROBE_ROW), device="cuda")
+        y = torch.empty(rows, device="cuda")
+        nbytes = (x.numel() + y.numel()) * 4
+
+        def read():
+            torch.sum(x, dim=1, out=y)
+
+        read()
+        cold, warm = device_ms(read, 50, cold=True), device_ms(read, 50)
+        r = dict(bytes=nbytes, cold_ms=cold, warm_ms=warm, cold_GBps=nbytes / cold / 1e6,
+                 warm_GBps=nbytes / warm / 1e6)
+        say(f"time [{card}] L2 flush check: a plain read of {nbytes / 1e6:.1f} MB (row sums) cold "
+            f"{cold:.6f} ms = {r['cold_GBps']:.1f} GB/s ({r['cold_GBps'] * 1e9 / peak_bw:.1%} of "
+            f"{peak_bw / 1e12} TB/s), warm {warm:.6f} ms = {r['warm_GBps']:.1f} GB/s")
+        if r["cold_GBps"] * 1e9 > K1_MAX_SHARE * peak_bw:
+            fail(f"the L2 flush does not empty the L2: a cold read ran at {r['cold_GBps']:.1f} GB/s")
+        out.append(r)
+    return out
 
 
 def old_reduce(path: str, build_dir):
@@ -434,32 +595,29 @@ def reduce_at_path_shape(mapper, cfg, pyr, card: str, peaks, path: str, window_l
     return k1_hold(prep, weights, ratios, card, peaks, f"the {path} path's window prep inputs")
 
 
-def k1_hold(prep, weights, ratios, card: str, peaks, label: str) -> dict:
+def k1_hold(prep, weights, ratios, card: str, peaks, label: str, binary: bool = False) -> dict:
     """K1 on one linearization's prep inputs against its plain version, and
-    timed there beside the plain version, the library call and the bound.
-    Launches made here are not counted."""
+    timed there (cold L2, the warm reading beside) with the plain version,
+    the library call and the bound. Launches made here are not counted."""
     from sage_slam_tpu_torch.ops import photo_reduce as pr
 
     saved = pr.photo_reduce.launches
     out = pr.photo_reduce(*prep, weights, ratios)
     ref = pr.photo_reduce_ref(*prep, weights, ratios)
-    abs_err, rel_err = compare_reduce(out, ref, False, label)
-    for _ in range(3):
-        pr.photo_reduce(*prep, weights, ratios)
-    t_kernel = device_ms(lambda: pr.photo_reduce(*prep, weights, ratios), 50, "photo_reduce")
-    t_plain = device_ms(lambda: pr.photo_reduce_ref(*prep, weights, ratios), 20)
-    run_library = library_call(prep)
-    run_library()
-    t_library = device_ms(run_library, 50)
     pr.photo_reduce.launches = saved
+    abs_err, rel_err = compare_reduce(out, ref, binary, label)
     bound_ms, bound_by, in_b, out_b, _ = reduce_bound(prep, *peaks)
+    t = k1_times(lambda: pr.photo_reduce(*prep, weights, ratios),
+                 lambda: pr.photo_reduce_ref(*prep, weights, ratios), library_call(prep), bound_ms, label)
     say(f"kernel vs plain: photo_reduce on {label} "
-        f"{tuple(prep[0].shape)}: ok; [{card}] device {t_kernel:.5f} ms, plain {t_plain:.4f} ms, "
-        f"library bmm of the final contraction {t_library:.4f} ms, bound {bound_ms:.5f} ms by "
-        f"{bound_by} ({(in_b + out_b) / 1e6:.1f} MB) = {bound_ms / t_kernel:.1%} of bound")
+        f"{tuple(prep[0].shape)}: ok; [{card}] cold L2: device {t['ms']:.6f} ms, plain "
+        f"{t['plain_ms']:.4f} ms, library bmm of the final contraction {t['library_ms']:.4f} ms, bound "
+        f"{bound_ms:.6f} ms by {bound_by} ({(in_b + out_b) / 1e6:.1f} MB) = {bound_ms / t['ms']:.1%} of "
+        f"bound; warm L2 (back-to-back calls): device {t['warm_ms']:.6f} ms "
+        f"({bound_ms / t['warm_ms']:.1%} of bound), plain {t['warm_plain_ms']:.4f} ms, library "
+        f"{t['warm_library_ms']:.4f} ms")
     return dict(max_abs_err=abs_err, max_rel_err=rel_err,
-                shape=dict(E=int(prep[0].shape[0]), ms=t_kernel, plain_ms=t_plain,
-                           bound_ms=bound_ms, bound_by=bound_by, library_ms=t_library))
+                shape=dict(E=int(prep[0].shape[0]), bound_ms=bound_ms, bound_by=bound_by, **t))
 
 
 def mapper_path(dev, card: str, peaks) -> dict:
@@ -1384,24 +1542,21 @@ def train_hold(state, triplet, pyr, tcfg, dev) -> str:
     ids = train.draw_sample_ids(torch.Generator().manual_seed(7), pyr[0].num_pixels,
                                 tcfg.num_photo_samples)
     loss_fn = train.make_loss_fn(pyr, tcfg, True)
-    # the BA's LM decisions (each state selection's flag) in each gradient
-    # pass: card and CPU gradients are of the same function only when they
-    # agree
-    decisions, select = [], diff_ba._select
-
-    def spy(flag, a, b):
-        decisions[-1].append(bool(flag))
-        return select(flag, a, b)
+    # every branch of the BA's unroll in each gradient pass (ba_optimize's
+    # record: the state selections' flags, the scale clamps, the zeroed
+    # solutions, the backward clips): card and CPU gradients are of the
+    # same function only when they agree
+    records = []
 
     def generator_grads(st, batch):
         gen = train.param_leaves(st.params, with_disc=False)
-        decisions.append([])
-        diff_ba._select = spy
+        diff_ba.ba_optimize.record = []
         try:
             grads = torch.autograd.grad(loss_fn(st.params, batch, ids)[0], [t for _, t in gen],
                                         allow_unused=True)
+            records.append(diff_ba.branch_record(diff_ba.ba_optimize.record))
         finally:
-            diff_ba._select = select
+            diff_ba.ba_optimize.record = None
         return [(torch.zeros_like(t) if g is None else g.detach()).cpu()
                 for (_, t), g in zip(gen, grads)]
 
@@ -1419,7 +1574,15 @@ def train_hold(state, triplet, pyr, tcfg, dev) -> str:
         out.append((float(loss), {k: float(v) for k, v in aux.items()},
                     [(a - b).cpu() for a, b in zip(after, before)], grads))
     (lg, ag, dg, gg), (lc, ac, dc, gc) = out
+    branches = ("select", "clamp", "zeroed", "clipped")
+    decisions = [{k: r.get(k, []) for k in branches} for r in records]
     same_branch = decisions[0] == decisions[1] == decisions[2]
+    bits = lambda d: "/".join(k + " " + ("".join("1" if x else "0" for x in d[k]) or "-")  # noqa: E731
+                              for k in branches)
+    # the largest condition number among the damped systems whose solution
+    # reaches the returned state (card's first pass, CPU)
+    cond_taken = [max((c for c, t in zip(r.get("cond", []), r.get("taken", [])) if t), default=None)
+                  for r in (records[0], records[2])]
     rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)  # noqa: E731
     loss_rel = rel(lg, lc)
     aux_key = max(ac, key=lambda k: rel(ag[k], ac[k]))
@@ -1466,8 +1629,11 @@ def train_hold(state, triplet, pyr, tcfg, dev) -> str:
             + (", ".join(f"{r['name']} |g| {r['own']:.3g}" for r in exempt) or "none")
             + f"; the card's gradient against itself: worst {worst_again} {again[worst_again]:.3g}"
             + f"; LM decisions (card, card again, CPU) {'equal' if same_branch else 'DIFFER'}: "
-            + ("".join("1" if d else "0" for d in decisions[0]) if same_branch
-               else " / ".join("".join("1" if d else "0" for d in ds) for ds in decisions)))
+            + (bits(decisions[0]) if same_branch else " | ".join(bits(d) for d in decisions))
+            + "; pre-clip cotangent norms (card, max_norm " + f"{tcfg.ba_bwd_clip}): "
+            + (", ".join(f"{x:.4g}" for x in records[0].get("clip_norm", [])) or "none")
+            + "; largest condition number of a system whose solution the gradient passes (card, "
+            + "CPU): " + ", ".join("none" if c is None else f"{c:.4g}" for c in cond_taken))
     if not same_branch:
         fail(line + "; the card and the CPU took different LM decisions, so their gradients "
              "are of different branches")
@@ -1505,18 +1671,8 @@ def train_path(dev, card: str, peaks) -> dict:
     e, lv, c, n, dim = BACKWARD_SHAPES[0][0]
     ratios = tuple((0.5**lvl, 0.5**lvl) for lvl in range(lv))
     prep = reduce_inputs(e, lv, c, n, dim, False, 50, dev)
-    saved = pr.photo_reduce.launches
-    abs_err, rel_err = compare_reduce(pr.photo_reduce(*prep, WEIGHTS, ratios),
-                                      pr.photo_reduce_ref(*prep, WEIGHTS, ratios), True, "training shape")
-    run_library = library_call(prep)
-    t_k = device_ms(lambda: pr.photo_reduce(*prep, WEIGHTS, ratios), 50, "photo_reduce")
-    t_p = device_ms(lambda: pr.photo_reduce_ref(*prep, WEIGHTS, ratios), 50)
-    t_l = device_ms(run_library, 50)
-    pr.photo_reduce.launches = saved
-    bound_ms, bound_by, in_b, out_b, _ = reduce_bound(prep, *peaks)
-    say(f"time [{card}] K1 at the training shape E={e} L={lv} C={c} N={n}: kernel {t_k:.5f} ms device, "
-        f"plain {t_p:.4f} ms, library bmm {t_l:.4f} ms, bound {bound_ms:.6f} ms by {bound_by} "
-        f"({(in_b + out_b) / 1e3:.1f} kB) = {bound_ms / t_k:.1%} of bound")
+    k1 = k1_hold(prep, WEIGHTS, ratios, card, peaks, f"the training shape E={e} L={lv} C={c} N={n}",
+                 binary=True)
 
     # 2. triplets on make_eval's first training orbit
     run_dir = os.path.join(ROOT, TRAIN_RUN_DIR)
@@ -1652,9 +1808,8 @@ def train_path(dev, card: str, peaks) -> dict:
     del state, st, frames
     torch.cuda.empty_cache()
     worst = max(bwd.values(), key=lambda r: r["rel_err"])
-    return dict(launches=launches, backward_calls=bwd_calls, max_abs_err=abs_err, max_rel_err=rel_err,
-                shape=[e, lv, c, n, dim], ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bound_ms,
-                bound_by=bound_by,
+    return dict(launches=launches, backward_calls=bwd_calls, max_abs_err=k1["max_abs_err"],
+                max_rel_err=k1["max_rel_err"], shape=[e, lv, c, n, dim], **k1["shape"],
                 backward={
                     "route": "torch ops, closed form",
                     "source": "sage_slam_tpu_torch/ops/photo_reduce.py:photo_reduce_backward",
@@ -2322,17 +2477,6 @@ def multi_device(dev, card: str, peaks, mapper, bench) -> dict:
             launches["gloo ranks"] += o["launches"]
         say(f"gloo: {name}: the two ranks' variables and error are bit-equal: ok")
     say(f"gloo: two ranks on {card} took {ms_spawn / 1e3:.2f} s from spawn to join")
-    # both dryruns as a user calls them, no devices named: one rank on
-    # cuda:0 in an NCCL group
-    for name, mod in (("sharded_ba", sharded_ba), ("sharded_store", sharded_store)):
-        (res,), ms = stopwatch(lambda mod=mod, name=name: mod.dryrun(
-            1, workdir=os.path.join(run_dir, f"dryrun_{name}")))
-        if (not np.isfinite(res["error"]) or res["iterations"] != 2
-                or (res["device"], res["backend"]) != ("cuda:0", "nccl")):
-            fail(f"{name}.dryrun(1): {res}")
-        say(f"dryrun: {name}.dryrun(1) by default on {res['device']} ({res['backend']}): error "
-            f"{res['error']:.8g}, {res['iterations']} iterations, {ms / 1e3:.2f} s from spawn to "
-            "join: ok")
     k1_rank = k1_hold(bench_prep(problem, variables, pyr, bcfg, problem.photo_edges.i0.shape[0] // 2),
                       tuple(bcfg.photo_factor_weights), photometric.level_ratios(pyr), card, peaks,
                       "one rank's prep inputs (E=12 of 24)")
@@ -2354,23 +2498,190 @@ def extras_path(dev, card: str, peaks, mapper) -> dict:
                 rank_shape=cd["k1_rank"]["shape"], seconds=secs)
 
 
+# phase 13: the port's measuring programs (sage_slam_tpu_torch/bench/,
+# entry.py) at their JAX programs' operating points. The metric names each
+# must print (bench.py, bench_frontend.py, bench_scaling.py) and the keys
+# of bench_roofline.py's object
+PROGRAM_METRICS = {
+    "global_ba": {"factors_per_second_global_ba_1iter", "factors_per_second_global_ba"},
+    "frontend": {"frontend_ms_per_frame", "frontend_build_frame_ms", "frontend_keyframe_overhead_ms",
+                 "frontend_fps", "frontend_whole_run_fps"},
+    "scaling": {"factors_per_second_sharded_ba", "mapping_step_ms"},
+}
+ROOFLINE_KEYS = {
+    "backend", "stream_GBps_rw", "matmul_f32_TFLOPs", "gather_ns_per_row", "gather_effective_GBps",
+    "factors_per_second_10iter", "factors_per_second_1iter", "ba_step_ms_10iter", "ba_iter_ms",
+    "model_gather_MB_per_iter", "model_reduce_GFLOP_per_iter", "sol_streaming_ms", "sol_gather_wall_ms",
+    "sol_mxu_ms", "pct_of_gather_wall", "pct_of_streaming_roofline", "mfu_pct",
+}
+
+
+def finite_numbers(record: dict, label: str) -> None:
+    for key, value in record.items():
+        if isinstance(value, (int, float)) and not isinstance(value, bool) and not np.isfinite(value):
+            fail(f"{label}: {key} = {value} is not finite")
+
+
+def program_run(name: str, main, argv: list, card: str) -> tuple:
+    """One program's main(argv) in this process, its output echoed ->
+    (what main returned, its JSON lines, K1's launches in this process,
+    seconds). The first line must name this card."""
+    import contextlib
+    import io
+
+    from sage_slam_tpu_torch.ops import photo_reduce as pr
+
+    buf = io.StringIO()
+    pr.photo_reduce.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = main(argv)
+    secs = time.perf_counter() - t0
+    launches = pr.photo_reduce.launches
+    text = buf.getvalue()
+    for line in text.splitlines():
+        say(f"  {name} {' '.join(argv)}: {line}")
+    lines = [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+    if not lines or lines[0].get("card") != card:
+        fail(f"{name}: the first line does not name the card {card!r}: {lines[:1]}")
+    for rec in lines[1:]:
+        finite_numbers(rec, name)
+    return out, lines[1:], launches, secs
+
+
+def programs_k1(dev, card: str, peaks) -> dict:
+    """K1 held and timed on the prep inputs of the programs' shapes beyond
+    the bench point: scaling's rank problem (each rank's block is its
+    contiguous share of the edges) and growth_curve's largest full step."""
+    from sage_slam_tpu_torch import synthetic
+    from sage_slam_tpu_torch.bench import scaling
+    from sage_slam_tpu_torch.config import MapperConfig
+    from sage_slam_tpu_torch.ops import photometric
+    from sage_slam_tpu_torch.solver import ba
+
+    cfg = MapperConfig()
+    weights = tuple(cfg.photo_factor_weights)
+    variables, problem, pyr = synthetic.bench_problem(device=dev, n=scaling.SAMPLES,
+                                                      n_photo=scaling.EDGES_PER_TYPE,
+                                                      n_geo=scaling.EDGES_PER_TYPE)
+    problem = ba.prepare_problem(problem, pyr)
+    holds = {}
+    for ranks in (1, 2):
+        prep = bench_prep(problem, variables, pyr, cfg, scaling.EDGES_PER_TYPE // ranks)
+        holds[f"scaling_{ranks}_rank"] = k1_hold(prep, weights, photometric.level_ratios(pyr), card, peaks,
+                                                 f"scaling's rank problem on {ranks} rank(s)")
+    del variables, problem, prep
+    for g in scaling.growth_points(dev):
+        pass  # the last graph, drawn after the others as growth_curve draws it
+    prep = bench_prep(ba.prepare_problem(g.problems["full"], g.cam_pyr), g.variables, g.cam_pyr, cfg)
+    holds["growth_full"] = k1_hold(prep, weights, photometric.level_ratios(g.cam_pyr), card, peaks,
+                                   f"growth_curve's full step at {g.keyframes} keyframes")
+    return holds
+
+
+def programs_path(dev, card: str, peaks) -> dict:
+    """Phase 13: every measuring program of the port on the card (see the
+    module note) -> K1's launches by program, and K1 at their shapes."""
+    from sage_slam_tpu_torch import entry
+    from sage_slam_tpu_torch.bench import frontend, global_ba, roofline, scaling
+
+    t0 = time.perf_counter()
+    launches = {}
+
+    def hold_launches(label: str, n: int, want: int) -> None:
+        if n != want:
+            fail(f"{label}: K1 launched {n} times for {want} LM iterations")
+
+    (step, ranks), _, n, secs = program_run("entry", entry.main, [], card)
+    if step[2] < 1 or not bool(torch.isfinite(step[1])):
+        fail(f"entry(): iterations {step[2]}, error {step[1]}")
+    for res in (*ranks[0], *ranks[1]):
+        if (not np.isfinite(res["error"]) or res["iterations"] != 2
+                or (res["device"], res["backend"]) != ("cuda:0", "nccl")):
+            fail(f"dryrun_multichip(1): {res}")
+    # the dryruns' ranks are processes of their own: their launches are not this process's
+    hold_launches("entry", n, step[2])
+    launches["entry"] = n
+    say(f"programs: entry: entry()'s step ({step[2]} LM iteration) and dryrun_multichip(1) on cuda:0 "
+        f"under NCCL (errors {ranks[0][0]['error']:.8g}, {ranks[1][0]['error']:.8g}) in {secs:.2f} s; "
+        f"K1 launches {n}: ok")
+
+    for name, main in (("global_ba", global_ba.main), ("frontend", frontend.main)):
+        out, lines, n, secs = program_run(name, main, [], card)
+        names = {r["metric"] for r in lines}
+        # frontend_keyframe_overhead_ms is printed only when a keyframe was made
+        if not PROGRAM_METRICS[name] - {"frontend_keyframe_overhead_ms"} <= names <= PROGRAM_METRICS[name]:
+            fail(f"{name}: metrics {sorted(names)}, expected {sorted(PROGRAM_METRICS[name])}")
+        # the frontend runs no BA step
+        hold_launches(name, n, sum(r["lm_iterations"] for r in out) if name == "global_ba" else 0)
+        launches[name] = n
+        say(f"programs: {name}: {len(lines)} metric lines in {secs:.2f} s; K1 launches {n}: ok")
+
+    out, lines, n, secs = program_run("roofline", roofline.main, [], card)
+    printed = {k: v for k, v in out.items() if k != "lm_iterations"}
+    if not ROOFLINE_KEYS <= set(printed) or lines != [printed]:
+        fail(f"roofline: keys {sorted(printed)} (expected {sorted(ROOFLINE_KEYS)})")
+    hold_launches("roofline", n, out["lm_iterations"])
+    launches["roofline"] = n
+    say(f"programs: roofline in {secs:.2f} s; K1 launches {n}: ok")
+
+    holds = programs_k1(dev, card, peaks)
+    # the flush's check again, late in the script, after the other paths' work
+    probe = flush_probe(peaks[0], card)
+
+    # one NCCL rank (the one card) with growth_curve up to 128 keyframes,
+    # then two gloo ranks on the one card without it
+    for label, argv, sizes in (("scaling", [], [1]),
+                               ("scaling, two gloo ranks", ["--device", "cuda:0", "--ranks", "2",
+                                                            "--growth-max", "0"], [1, 2])):
+        out, lines, n, secs = program_run("scaling", scaling.main, argv, card)
+        names = {r["metric"] for r in lines}
+        want = PROGRAM_METRICS["scaling"] - (set() if out["growth"] else {"mapping_step_ms"})
+        if names != want or [r["devices"] for r in out["scaling"]] != sizes:
+            fail(f"{label}: metrics {sorted(names)} over meshes {[r['devices'] for r in out['scaling']]}")
+        rank_runs = [x for r in out["scaling"] for x in r["ranks"]]
+        for x in rank_runs:
+            hold_launches(f"{label}, a rank", x["launches"], x["lm_iterations"])
+        # the ranks are processes of their own: this process ran growth_curve only
+        hold_launches(f"{label}, growth_curve", n, sum(r["lm_iterations"] for r in out["growth"]))
+        if out["growth"] and [r["keyframes"] for r in out["growth"]] != [8, 16, 32, 64, 128]:
+            fail(f"growth_curve: keyframe counts {[r['keyframes'] for r in out['growth']]}")
+        rank_launches = sum(x["launches"] for x in rank_runs)
+        launches[label] = rank_launches + n
+        say(f"programs: {label} in {secs:.2f} s; K1 launches {rank_launches} on the ranks, {n} by "
+            "growth_curve: ok")
+
+    secs = time.perf_counter() - t0
+    say(f"phase 13 took {secs:.1f} s")
+    return dict(launches=launches, seconds=secs, probe=probe, shapes={k: h["shape"] for k, h in holds.items()},
+                max_abs_err=max(h["max_abs_err"] for h in holds.values()),
+                max_rel_err=max(h["max_rel_err"] for h in holds.values()))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old-source", default=None,
                     help="an earlier photo_reduce.cu to time in turns with the current kernel")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     # ---- 1. device ----
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this smoke run needs a GPU")
     sys.path.insert(0, ROOT)
     from sage_slam_tpu_torch import _build, convert, synthetic
     from sage_slam_tpu_torch.config import MapperConfig
+    from sage_slam_tpu_torch.bench import card_line, peaks_for
     from sage_slam_tpu_torch.device import set_f32_precision
     from sage_slam_tpu_torch.ops import photo_reduce as pr
     from sage_slam_tpu_torch.ops import photometric
     from sage_slam_tpu_torch.solver import ba
 
     dev = torch.device("cuda", 0)
+    conf = os.path.join(ROOT, "sage_slam_tpu_torch", "_build", "kineto.conf")
+    os.makedirs(os.path.dirname(conf), exist_ok=True)
+    with open(conf, "w") as f:
+        f.write(KINETO_CONF)
+    os.environ.setdefault("KINETO_CONFIG", conf)
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     say(f"card: {card}")
@@ -2509,6 +2820,7 @@ def main() -> None:
     e, lv, c3, n = fgs.shape
     dim = kx.shape[1]
     bound_ms, bound_by, in_bytes, out_bytes, flops = reduce_bound(prep, peak_bw, peak_flops)
+    probe = flush_probe(peak_bw, card)
 
     def run_kernel():
         pr.photo_reduce(fgs, f0, gate, kx, ky, weights, ratios)
@@ -2517,51 +2829,39 @@ def main() -> None:
         pr.photo_reduce_ref(fgs, f0, gate, kx, ky, weights, ratios)
 
     run_library = library_call(prep)
-    run_old = None
+    # device time from the profiler's kernel durations, cold L2, the warm
+    # readings beside (k1_times); CUDA events around 50 warm calls (they
+    # also see the host's enqueue)
+    t = k1_times(run_kernel, run_plain, run_library, bound_ms, "the bench point")
+    kernel_ms, plain_ms, t_library = t["ms"], t["plain_ms"], t["library_ms"]
+    reps = 50
+    saved = pr.photo_reduce.launches
+    ev_kernel, ev_plain, ev_library = (cuda_ms(fn, reps) for fn in (run_kernel, run_plain, run_library))
+    pr.photo_reduce.launches = saved
+    say(f"time [{card}] photo_reduce kernel device, cold L2 {kernel_ms:.6f} ms (warm L2 "
+        f"{t['warm_ms']:.6f} ms = {bound_ms / t['warm_ms']:.1%} of bound; CUDA events around 50 warm "
+        f"wrapper calls {ev_kernel:.5f} ms per call), plain device cold {plain_ms:.4f} ms (warm "
+        f"{t['warm_plain_ms']:.4f}; events {ev_plain:.4f}), library bmm of the final contraction device "
+        f"cold {t_library:.4f} ms (warm {t['warm_library_ms']:.4f}; events {ev_library:.4f}), "
+        f"bound {bound_ms:.6f} ms by {bound_by} ({(in_bytes + out_bytes) / 1e6:.1f} MB, "
+        f"{flops / 1e9:.3f} GFLOP) = {bound_ms / kernel_ms:.1%} of bound (cold), "
+        f"at E={e} L={lv} C={c3 // 3} N={n} dim={dim}")
+    old_ms = None
     if args.old_source:
         old = old_reduce(args.old_source, os.path.join(ROOT, "sage_slam_tpu_torch", "_build"))
-        out_old = old(fgs, f0, gate, kx, ky, weights, ratios)
-        compare_reduce(out_old, ref, False, "old kernel, main-path prep inputs")
+        compare_reduce(old(fgs, f0, gate, kx, ky, weights, ratios), ref, False,
+                       "old kernel, main-path prep inputs")
 
         def run_old():
             old(fgs, f0, gate, kx, ky, weights, ratios)
 
-    saved = pr.photo_reduce.launches
-    for fn in (run_plain, run_kernel, run_library, run_old):
-        for _ in range(3 if fn else 0):
-            fn()
-    torch.cuda.synchronize()
-    reps = 50
-    # device time from the profiler's kernel durations; CUDA events around
-    # the same calls beside it (they also see the host's enqueue)
-    t_plain = [device_ms(run_plain, reps)]
-    if run_old:
-        t_old = [device_ms(run_old, reps, "photo_reduce")]
-    t_kernel = [device_ms(run_kernel, reps, "photo_reduce") for _ in range(2)]
-    if run_old:
-        t_old.append(device_ms(run_old, reps, "photo_reduce"))
-    t_plain.append(device_ms(run_plain, reps))
-    t_library = device_ms(run_library, reps)
-    ev_kernel = cuda_ms(run_kernel, reps)
-    ev_plain = cuda_ms(run_plain, reps)
-    ev_library = cuda_ms(run_library, reps)
-    pr.photo_reduce.launches = saved
-    kernel_ms = float(np.mean(t_kernel))
-    plain_ms = float(np.mean(t_plain))
-    say(f"time [{card}] photo_reduce kernel device {kernel_ms:.5f} ms (runs "
-        f"{t_kernel[0]:.5f}, {t_kernel[1]:.5f}; CUDA events around 50 wrapper calls "
-        f"{ev_kernel:.5f} ms per call), plain device {plain_ms:.4f} ms (runs "
-        f"{t_plain[0]:.4f}, {t_plain[1]:.4f}; events {ev_plain:.4f}), library bmm of the "
-        f"final contraction device {t_library:.4f} ms (events {ev_library:.4f}), "
-        f"bound {bound_ms:.5f} ms by {bound_by} ({(in_bytes + out_bytes) / 1e6:.1f} MB, "
-        f"{flops / 1e9:.3f} GFLOP) = {bound_ms / kernel_ms:.1%} of bound, "
-        f"at E={e} L={lv} C={c3 // 3} N={n} dim={dim}")
-    if run_old:
-        old_ms = float(np.mean(t_old))
-        say(f"time [{card}] old vs new photo_reduce in turns (old, new, new, old), device: "
-            f"old {t_old[0]:.5f}, new {t_kernel[0]:.5f}, new {t_kernel[1]:.5f}, old "
-            f"{t_old[1]:.5f} ms; old {old_ms:.5f} ms ({bound_ms / old_ms:.1%} of bound), "
-            f"new {kernel_ms:.5f} ms ({bound_ms / kernel_ms:.1%}), speed-up {old_ms / kernel_ms:.3f}x")
+        turns = [device_ms(fn, reps, "photo_reduce", cold=True)
+                 for fn in (run_old, run_kernel, run_kernel, run_old)]
+        pr.photo_reduce.launches = saved
+        old_ms, new_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        say(f"time [{card}] old vs new photo_reduce in turns (old, new, new, old), device, cold L2: "
+            f"{', '.join(f'{x:.5f}' for x in turns)} ms; old {old_ms:.5f} ms ({bound_ms / old_ms:.1%} of "
+            f"bound), new {new_ms:.5f} ms ({bound_ms / new_ms:.1%}), speed-up {old_ms / new_ms:.3f}x")
 
     step_times, event_times = [], []
     for rep in range(4):
@@ -2609,7 +2909,11 @@ def main() -> None:
     extra = extras_path(dev, card, (peak_bw, peak_flops), mapped.pop("mapper"))
     max_err, max_rel = max(max_err, extra["max_abs_err"]), max(max_rel, extra["max_rel_err"])
 
-    # ---- 13. result ----
+    # ---- 13. the measuring programs ----
+    programs = programs_path(dev, card, (peak_bw, peak_flops))
+    max_err, max_rel = max(max_err, programs["max_abs_err"]), max(max_rel, programs["max_rel_err"])
+
+    # ---- 14. result ----
     kernels = [{
         "name": "photo_reduce",
         "route": "cuda",
@@ -2618,12 +2922,12 @@ def main() -> None:
         "launches": (launches["photo_reduce"] + mapped["launches"] + slammed["launches"]
                      + looped["launches"] + looped["driver_launches"] + demoed["launches"]
                      + trained["launches"] + sum(evaled["launches"].values())
-                     + sum(extra["launches"].values())),
+                     + sum(extra["launches"].values()) + sum(programs["launches"].values())),
         "launches_by_path": {"run_ba": launches["photo_reduce"], "mapper": mapped["launches"],
                              "slam": slammed["launches"], "loop": looped["launches"],
                              "driver": looped["driver_launches"], "demo": demoed["launches"],
                              "train": trained["launches"], **evaled["launches"],
-                             **extra["launches"]},
+                             **extra["launches"], **programs["launches"]},
         "max_abs_err": max_err,
         "max_rel_err": max_rel,
         "matched": True,
@@ -2633,7 +2937,10 @@ def main() -> None:
         "bound_by": bound_by,
         "library_ms": t_library,
         "library_call": "torch.bmm of the final contraction kx@kgx^T + ky@kgy^T only",
+        "timing": "device time, cold L2 (a 96 MB scratch buffer read three times before each call)",
+        "warm_ms": t["warm_ms"],
         "events_ms": ev_kernel,
+        "flush_probe": {"phase 5": probe, "phase 13": programs["probe"]},
         "mapper_shape": mapped["shape"],
         "slam_shape": slammed["shape"],
         "loop_shape": looped["shape"],
@@ -2643,13 +2950,15 @@ def main() -> None:
         "mega_shape": extra["mega_shape"],
         "mesh_shape": extra["mesh_shape"],
         "gloo_rank_shape": extra["rank_shape"],
-        "train_shape": {k: trained[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
-                                                 "bound_by")},
+        "program_shapes": programs["shapes"],
+        "train_shape": {k: trained[k] for k in ("shape", "ms", "warm_ms", "plain_ms", "library_ms",
+                                                 "bound_ms", "bound_by")},
         "backward": trained["backward"],
         "train_step_ms": trained["step_ms"],
     }]
-    if run_old:
+    if old_ms is not None:
         kernels[0]["earlier_ms"] = old_ms
+    say(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(card_line())
     say(json.dumps({"ok": True, "device": {

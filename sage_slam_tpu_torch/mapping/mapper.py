@@ -56,6 +56,7 @@ from ..ops.pyramid import gaussian_pyramid_with_grad, mask_pyramid
 from ..solver import ba
 from ..solver.graph import Variables
 from ..tracker import matcher, robust
+from ..utils import timing
 from .keyframe_store import FrameData, KeyframeStore
 
 
@@ -217,11 +218,13 @@ class Mapper:
     def _masked_mean_sq(self, bias_flat):
         return torch.sum((bias_flat * self.mask_flat) ** 2) / torch.sum(self.mask_flat)
 
+    @timing.timed("build_frame")
     def build_frame(self, timestamp: float, image, pose: Optional[SE3] = None,
                     loc1d=None) -> FrameData:
         """image [3, H, W] (input resolution). ``loc1d`` [N] injects the
         photometric pixel ids; by default they are drawn from the
-        timestamp's seed."""
+        timestamp's seed. A utils/timing span ("build_frame") when timing
+        is enabled."""
         dev = self.device
         image = torch.as_tensor(image, dtype=torch.float32, device=dev)
         loc1d = self.sample_locations(timestamp) if loc1d is None else self._ids(loc1d)

@@ -278,24 +278,29 @@ def _linearize(params: BAParams, state: BAState, inp: BAInputs, cam_pyr: CameraP
     return ata, atb, err
 
 
+SCALE_MIN = 1e-3  # _update's floor on the scale
+
+
 def _update(state: BAState, sol: torch.Tensor) -> BAState:
     """Left-multiplicative pose, additive scale and code; solution order
     [pose, scale, code]."""
     new_t10 = se3m.compose(se3_exp(sol[:6]), se3_exp(state.tau10))
     return BAState(
         tau10=se3m.se3_log(new_t10),
-        scale0=torch.clamp(state.scale0 + sol[6], min=1e-3),
+        scale0=torch.clamp(state.scale0 + sol[6], min=SCALE_MIN),
         code0=state.code0 + sol[7:],
     )
 
 
 class _BwdClip(torch.autograd.Function):
     """Identity forward; the cotangent's norm is clipped to max_norm on the
-    backward pass (max_norm <= 0: unclipped)."""
+    backward pass (max_norm <= 0: unclipped). With ba_optimize.record set
+    when the forward ran, the backward records the pre-clip norm."""
 
     @staticmethod
     def forward(ctx, x, max_norm: float):
         ctx.max_norm = float(max_norm)
+        ctx.record = ba_optimize.record
         return x.clone()
 
     @staticmethod
@@ -303,6 +308,9 @@ class _BwdClip(torch.autograd.Function):
         if ctx.max_norm <= 0:
             return g, None
         norm = torch.sqrt(torch.sum(g * g))
+        if ctx.record is not None:
+            ctx.record.append(("clip_norm", norm.detach()))
+            ctx.record.append(("clipped", (norm > ctx.max_norm).detach()))
         factor = torch.clamp(ctx.max_norm / torch.clamp(norm, min=1e-12), max=1.0)
         return g * factor, None
 
@@ -351,7 +359,19 @@ def ba_optimize(
     damping search, applies the accepted update unless already done, and
     sets the done flag from the gradient / relative-increment thresholds or
     a give-up at damp_max. The condition numbers enter comparisons only,
-    detached."""
+    detached.
+
+    Every branch the unroll's gradient can take is recorded when
+    ``ba_optimize.record`` is a list (None, the default, records nothing):
+    in order, (kind, detached device tensor) pairs, "zeroed" per solve (a
+    non-finite solution replaced by zeros), per damping attempt "clamp"
+    (the candidate's scale clamp binds), "select" (the attempt's accept
+    flag), "taken" (its solution reaches the returned state) and "cond"
+    (its damped system's condition number), per iteration "select" (the
+    state update's flag), and per cotangent through _BwdClip on the
+    backward pass "clip_norm" (its norm before the clip) and "clipped".
+    ``branch_record`` reads them."""
+    rec = ba_optimize.record
     dev, dt = init.code0.device, init.code0.dtype
     dim = 7 + init.code0.shape[0]
     eye = torch.eye(dim, dtype=dt, device=dev)
@@ -366,7 +386,10 @@ def ba_optimize(
         damped = ata + damp * torch.diag(torch.diagonal(ata)) + 1e-10 * eye
         sol = torch.linalg.solve_ex(damped, atb)[0]  # a singular system gives non-finite values
         cond = torch.linalg.cond(damped.detach())
-        return torch.where(torch.isfinite(sol), sol, torch.zeros_like(sol)), cond
+        finite = torch.isfinite(sol)
+        if rec is not None:
+            rec.append(("zeroed", ~finite.all()))
+        return torch.where(finite, sol, torch.zeros_like(sol)), cond
 
     state = init
     damp = torch.tensor(init_damp, dtype=dt, device=dev)
@@ -398,6 +421,9 @@ def ba_optimize(
             cand = _update(state, cur_sol)
             cand_err = linearize(cand)[2]
             ok = (cand_err < err0) & (cur_cond < max_cond) & ~accepted
+            if rec is not None:
+                rec += [("clamp", (state.scale0 + cur_sol[6]).detach() < SCALE_MIN),
+                        ("select", ok), ("taken", ok & ~done), ("cond", cur_cond)]
             best_state = _select(ok, cand, best_state)
             accepted = accepted | ok
             next_damp = torch.clamp(cur_damp * damp_inc, damp_min, damp_max)
@@ -410,11 +436,25 @@ def ba_optimize(
                                cur_damp)
         give_up = ~accepted & (cur_damp >= damp_max)
         active = ~done
+        if rec is not None:
+            rec.append(("select", active & accepted))
         state = _select(active & accepted, best_state, state)
         damp = torch.where(active, new_damp, damp)
         done = done | converged | give_up
         errs.append(err0)
     return state, torch.stack(errs)
+
+
+ba_optimize.record = None
+
+
+def branch_record(record) -> dict:
+    """ba_optimize.record on the host -> {kind: [bool or float, ...]} in
+    recorded order."""
+    out = {}
+    for kind, value in record:
+        out.setdefault(kind, []).append(value.item())
+    return out
 
 
 def ba_outputs(state: BAState, bias0_flat, jac0_flat, cam, dpt_eps=1e-6):

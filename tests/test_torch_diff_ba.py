@@ -338,6 +338,34 @@ def test_ba_optimize_bwd_clip_changes_only_the_gradient(jax_ba_run):
     assert torch.isfinite(g)
 
 
+def test_ba_optimize_records_every_branch(jax_ba_run):
+    """ba_optimize.record, when a list, receives each branch of the unroll
+    in order (2 iterations x 3 damping attempts, 2 x 4 solves, one clipped
+    cotangent on the backward pass: the first iteration's clip is of the
+    initial state, which takes no gradient) and changes neither the result
+    nor the gradient; None records nothing."""
+    pa, _, _, a, ea, la = _port_run(jax_ba_run, bwd_clip=1e-3)
+    ga = torch.autograd.grad(la, pa.photo_weight)[0]
+    diff_ba.ba_optimize.record = record = []
+    try:
+        pb, _, _, b, eb, lb = _port_run(jax_ba_run, bwd_clip=1e-3)
+        gb = torch.autograd.grad(lb, pb.photo_weight)[0]
+    finally:
+        diff_ba.ba_optimize.record = None
+    got = diff_ba.branch_record(record)
+    assert {k: len(v) for k, v in got.items()} == {
+        "zeroed": 8, "clamp": 6, "select": 8, "taken": 6, "cond": 6, "clip_norm": 1, "clipped": 1}
+    assert got["clipped"] == [n > 1e-3 for n in got["clip_norm"]]
+    assert any(got["taken"]) and not any(got["zeroed"]) and not any(got["clamp"])
+    assert all(c >= 1.0 for c in got["cond"])
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x.detach().numpy(), y.detach().numpy())
+    np.testing.assert_array_equal(ea.detach().numpy(), eb.detach().numpy())
+    assert float(ga) == float(gb)
+    _port_run(jax_ba_run, bwd_clip=1e-3)
+    assert len(record) == sum(map(len, got.values()))
+
+
 def test_ba_outputs_match_jax(jax_ba_run):
     """Depth map and rigid flow of the final state: rtol 1e-5."""
     feat, bias, jac, loc = jax_ba_run["arrays"]

@@ -3,7 +3,9 @@
 Walks the AST of every module of sage_slam_tpu_torch/ and of chip_smoke.py
 and fails on any import whose root module is exactly ``jax``, ``jaxlib``
 or ``sage_slam_tpu`` (roots compare exactly, so ``sage_slam_tpu_torch``
-passes). Also checks that the CUDA build directory is git-ignored."""
+passes), or is one of the repo's root programs that drive the JAX package
+(bench*.py, __graft_entry__.py). Also checks that the CUDA build directory
+is git-ignored."""
 
 import ast
 from pathlib import Path
@@ -56,14 +58,27 @@ SLICE_MODULES = [
     # the default-off paths and multi-device BA
     "geometry/interp.py", "solver/graph.py", "parallel/__init__.py", "parallel/launch.py",
     "parallel/sharded_ba.py", "parallel/sharded_store.py",
+    # the measuring programs
+    "bench/__init__.py", "bench/global_ba.py", "bench/roofline.py", "bench/frontend.py",
+    "bench/scaling.py", "entry.py",
 ]
+
+# the repo's root programs that drive the JAX package
+ROOT_SCRIPTS = {"bench", "bench_frontend", "bench_roofline", "bench_scaling", "__graft_entry__"}
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_module_imports_no_root_script(path):
+    bad = [(line, root) for line, root in _import_roots(path) if root in ROOT_SCRIPTS]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
 @pytest.mark.parametrize("rel", SLICE_MODULES)
 def test_mapper_slice_module_is_guarded(rel):
     """Every module of the mapper, tracker / frontend, loop / driver, IO /
-    eval / demo, training, dense / diagnostic eval and multi-device slices
-    exists and is among the files the guard above walks."""
+    eval / demo, training, dense / diagnostic eval, multi-device and
+    measuring-program slices exists and is among the files the guards
+    above walk."""
     assert ROOT / "sage_slam_tpu_torch" / rel in PORT_FILES
 
 
