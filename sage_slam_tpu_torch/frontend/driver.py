@@ -81,7 +81,7 @@ class SlamDriver:
         if thread in self._warmed:
             return
         self._warmed.add(thread)
-        with timing.timed(f"solver set-up ({thread})"):
+        with timing.span(f"solver set-up ({thread})"):
             a = torch.eye(7, device=self.system.device) + 1.0  # positive definite
             u, _ = torch.linalg.cholesky_ex(a, upper=True)
             torch.cholesky_solve(a[:, :1], u, upper=True)
@@ -92,13 +92,10 @@ class SlamDriver:
 
     def _mapping_tick(self):
         self._warm_solvers("mapping worker")
-        timing.tic("mapping_tick")
-        try:
+        with timing.span("mapping_tick"):
             if self.system.store.num_active >= 2:
                 # snapshot -> solve -> merge; overlaps the frontend
                 self.system.mapper.mapping_step()
-        finally:
-            timing.toc("mapping_tick")
 
     def _loop_tick(self):
         self._warm_solvers("loop worker")
@@ -106,7 +103,7 @@ class SlamDriver:
         # flags (the newest unsearched keyframe each tick)
         if self.kf_queue is not None:
             self.kf_queue.pop(timeout_ms=50)
-        with timing.timed("loop_tick"):
+        with timing.span("loop_tick"):
             self.system.local_loop_tick()
             self.system.global_loop_tick()
 
@@ -140,7 +137,7 @@ class SlamDriver:
                 if system.store.num_active == 0:
                     system.bootstrap(rec.timestamp, img, frame=fr)
                     continue
-                with timing.timed("process_frame"):
+                with timing.span("process_frame"):
                     res = system.process_frame(rec.timestamp, img, frame=fr)
                 results.append(res)
                 if res.new_keyframe:

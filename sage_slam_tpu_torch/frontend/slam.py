@@ -327,8 +327,9 @@ class SlamSystem:
         warp2d = host[2 * nv : 4 * nv].reshape(nv, 2)
         within = host[4 * nv : 5 * nv] > 0.5
         inlier_ratio, avg_motion, desc_ratio, err, pose_dist = (float(x) for x in host[5 * nv :])
-        a0 = tracker.convex_hull_area(src2d)
-        a1 = tracker.convex_hull_area(warp2d[within]) if within.any() else 0.0
+        with timing.span("tracker.convex_hull_area"):
+            a0 = tracker.convex_hull_area(src2d)
+            a1 = tracker.convex_hull_area(warp2d[within]) if within.any() else 0.0
         area_ratio = a1 / a0 if a0 > 0 else 0.0
 
         fr.pose = frame_pose
@@ -387,6 +388,7 @@ class SlamSystem:
         )
         return frame_too_far or desc_ratio < kcfg.max_desc_inlier_ratio
 
+    @timing.span("slam.create_keyframe")
     def _create_keyframe(self, fr: FrameData) -> int:
         """Back connections: the reference keyframe, then the newest
         keyframes whose descriptor inlier ratio passes, up to
@@ -444,7 +446,7 @@ class SlamSystem:
         host = torch.stack([dists, sims]).cpu().numpy()
         return host[0], host[1]
 
-    @timing.timed("detect_local_loop")
+    @timing.span("detect_local_loop")
     def detect_local_loop(self, kf_id: int) -> LoopInfo:
         """Local loop: candidates in the visited window are verified by
         7-DoF tracking and gated on area x inlier, descriptor, BoW and
@@ -556,7 +558,7 @@ class SlamSystem:
             out.append(cid)
         return out
 
-    @timing.timed("detect_global_loop")
+    @timing.span("detect_global_loop")
     def detect_global_loop(self, kf_id: int) -> List[LoopInfo]:
         """Global loop: BoW query, gates, 7-DoF verification of each
         candidate, then redundancy suppression."""
@@ -592,7 +594,7 @@ class SlamSystem:
                 filtered.append(lp)
         return filtered
 
-    @timing.timed("track_7dof")
+    @timing.span("track_7dof")
     def _track_7dof(self, ref_id, fr_like: FrameData, mg: MatchGeoResult) -> Optional[dict]:
         """7-DoF LM tracking of ``fr_like`` against keyframe ``ref_id`` with
         the match-geometry term, at the loop's own LM settings, and the
@@ -635,7 +637,7 @@ class SlamSystem:
         return dict(res=res, area_ratio=a1 / a0 if a0 > 0 else 0.0, inlier_ratio=float(host[5 * nv]),
                     average_motion=float(host[5 * nv + 1]), desc_ratio=desc_ratio)
 
-    @timing.timed("verify_loop_7dof")
+    @timing.span("verify_loop_7dof")
     def _verify_loop_7dof(self, ref_id, fr_like: FrameData, mg: MatchGeoResult,
                           query_id: Optional[int] = None) -> Optional[LoopInfo]:
         """7-DoF verification of a loop candidate: the track's overlap gates,
@@ -736,7 +738,7 @@ class SlamSystem:
         return LoopInfo(detected=True, id_ref=ref_id, pose_cur_ref=pose_cur_ref, query_scale=fr_scale,
                         ref_scale=ref_scale, quality=quality)
 
-    @timing.timed("close_global_loops")
+    @timing.span("close_global_loops")
     def close_global_loops(self, kf_id: int, loops: List[LoopInfo]):
         """Pose-scale graph solve and write-back.
 

@@ -218,7 +218,7 @@ class Mapper:
     def _masked_mean_sq(self, bias_flat):
         return torch.sum((bias_flat * self.mask_flat) ** 2) / torch.sum(self.mask_flat)
 
-    @timing.timed("build_frame")
+    @timing.span("build_frame")
     def build_frame(self, timestamp: float, image, pose: Optional[SE3] = None,
                     loc1d=None) -> FrameData:
         """image [3, H, W] (input resolution). ``loc1d`` [N] injects the
@@ -606,7 +606,7 @@ class Mapper:
         full-capacity tables: every rank must hold the same map and make
         the same call. The rows outside the active bucket are frozen and
         solve as identity blocks."""
-        with self.store.lock:
+        with timing.span("mapper.snapshot"), self.store.lock:
             if self.store.num_active < 2:
                 self.last_step_iters = 0
                 self.last_step_converged = False
@@ -626,36 +626,38 @@ class Mapper:
         if self.solve_hook is not None:
             self.solve_hook()
 
-        mcfg = self.cfg.mapper
-        if photo_weights is not None:
-            mcfg = dataclasses.replace(mcfg, photo_factor_weights=tuple(photo_weights))
-        if mesh is None:
-            vs, err, iters, conv = ba.run_ba(
-                v_c, problem, self.cam_pyr, mcfg, update_mask,
-                max_iters or mcfg.max_gn_iters, use_conv=full,
-            )
-            v_full = snap_vars
-            v_full.pose.rot[ids] = vs.pose.rot
-            v_full.pose.trans[ids] = vs.pose.trans
-            v_full.code[ids] = vs.code
-            v_full.scale[ids] = vs.scale
-        else:
-            from ..parallel import sharded_ba
+        with timing.span("mapper.solve"):
+            mcfg = self.cfg.mapper
+            if photo_weights is not None:
+                mcfg = dataclasses.replace(mcfg, photo_factor_weights=tuple(photo_weights))
+            if mesh is None:
+                vs, err, iters, conv = ba.run_ba(
+                    v_c, problem, self.cam_pyr, mcfg, update_mask,
+                    max_iters or mcfg.max_gn_iters, use_conv=full,
+                )
+                v_full = snap_vars
+                v_full.pose.rot[ids] = vs.pose.rot
+                v_full.pose.trans[ids] = vs.pose.trans
+                v_full.code[ids] = vs.code
+                v_full.scale[ids] = vs.scale
+            else:
+                from ..parallel import sharded_ba
 
-            v_full, err, iters, conv = sharded_ba.sharded_run_ba(
-                snap_vars, sharded_ba.shard_problem(problem, mesh), self.cam_pyr, mcfg,
-                update_mask, mesh, max_iters or mcfg.max_gn_iters, use_conv=full,
-            )
-        err = float(err)  # the one host read of the step, outside the lock
-        with self.store.lock:
-            self.store.merge_variables(v_full, snap_version, snap_n)
-            # a reinitialized keyframe is released after one held step
-            self.store.reinitialize_count = np.maximum(self.store.reinitialize_count - 1, 0)
-            # edge lists only append concurrently, so the snapshot's indices
-            # stay valid; retirement runs only here
-            photo_pairs = [self.photo_edges[n] for n in selection[0]]
-            self._retire_edges(*selection, iters_spent=iters)
-            self.step_iters_total += iters
+                v_full, err, iters, conv = sharded_ba.sharded_run_ba(
+                    snap_vars, sharded_ba.shard_problem(problem, mesh), self.cam_pyr, mcfg,
+                    update_mask, mesh, max_iters or mcfg.max_gn_iters, use_conv=full,
+                )
+        with timing.span("mapper.write_back"):
+            err = float(err)  # the one host read of the step, outside the lock
+            with self.store.lock:
+                self.store.merge_variables(v_full, snap_version, snap_n)
+                # a reinitialized keyframe is released after one held step
+                self.store.reinitialize_count = np.maximum(self.store.reinitialize_count - 1, 0)
+                # edge lists only append concurrently, so the snapshot's indices
+                # stay valid; retirement runs only here
+                photo_pairs = [self.photo_edges[n] for n in selection[0]]
+                self._retire_edges(*selection, iters_spent=iters)
+                self.step_iters_total += iters
         self.last_step_iters = iters
         self.last_step_converged = conv
         self.last_step_edges = tuple(len(s) for s in selection)

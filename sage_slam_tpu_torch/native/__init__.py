@@ -9,7 +9,6 @@ the source. A missing g++ or a failed build raises. It exposes:
 * Runtime: rate-controlled OS threads for the mapping and loop backends
   (the reference's pthread architecture, deepfactors.cpp:1495-1505);
 * TaskQueue: a blocking work queue;
-* tic / toc / prof_report: the native profiler;
 * convex_hull_area, median: host-side math.
 
 A Python exception inside a ctypes callback would be printed and dropped,
@@ -88,11 +87,6 @@ def load() -> ctypes.CDLL:
         lib.rt_queue_size.restype = i64
         lib.rt_queue_size.argtypes = [ptr]
         lib.rt_queue_close.argtypes = [ptr]
-        lib.rt_prof_enable.argtypes = [ctypes.c_int]
-        lib.rt_tic.argtypes = [ctypes.c_char_p]
-        lib.rt_toc.argtypes = [ctypes.c_char_p]
-        lib.rt_prof_report.restype = i64
-        lib.rt_prof_report.argtypes = [ctypes.c_char_p, i64]
         lib.rt_convex_hull_area.restype = ctypes.c_double
         lib.rt_convex_hull_area.argtypes = [ctypes.POINTER(ctypes.c_float), i64]
         lib.rt_median.restype = ctypes.c_float
@@ -178,24 +172,6 @@ class TaskQueue:
 
     def close(self):
         self._lib.rt_queue_close(self._h)
-
-
-def prof_enable(on: bool = True):
-    load().rt_prof_enable(1 if on else 0)
-
-
-def tic(name: str):
-    load().rt_tic(name.encode())
-
-
-def toc(name: str):
-    load().rt_toc(name.encode())
-
-
-def prof_report() -> str:
-    buf = ctypes.create_string_buffer(65536)
-    load().rt_prof_report(buf, len(buf))
-    return buf.value.decode()
 
 
 def convex_hull_area(points: np.ndarray) -> float:

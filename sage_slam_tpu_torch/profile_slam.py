@@ -80,7 +80,7 @@ def layer_timers(system, times: dict):
     def timed(name, fn):
         def wrapper(*args, **kwargs):
             depth[0] += 1
-            outer = depth[0] == 1  # lm_track calls itself for coarse-to-fine
+            outer = depth[0] == 1  # a layer called inside another is timed once
             if outer:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()

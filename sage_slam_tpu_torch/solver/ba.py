@@ -26,6 +26,7 @@ from ..geometry.se3 import SE3
 from ..ops import geometric, photometric, priors
 from ..ops import reprojection as rp_ops
 from ..ops.photo_reduce import photo_reduce
+from ..utils import timing
 from . import graph
 from .graph import Variables
 
@@ -283,6 +284,7 @@ def _check(variables: Variables, problem: BAProblem, cfg) -> None:
         set_f32_precision()
 
 
+@timing.span("ba.linearize")
 def linearize(
     variables: Variables,
     problem: BAProblem,
@@ -306,110 +308,117 @@ def linearize(
     sel_scale = torch.arange(6 + cs, 7 + cs, device=dev)
 
     # ---- photometric edges: vars (p0, p1, c0, s0), dim 13+CS ----
-    pe = problem.photo_edges
-    if pe.i0.shape[0] > 0:
-        kf0, fr1, shared = _photo_inputs(problem.window, pe)
-        fgs, f0cm, gate, kx, ky = photometric.photo_prep(
-            _edge_pose(variables, pe.i0), _edge_pose(variables, pe.i1),
-            variables.code[pe.i0], variables.scale[pe.i0], kf0, fr1, shared,
-            cam_pyr, cfg.dpt_eps, soft=soft,
-        )
-        ata, atb, err_t, n_inl = photo_reduce(
-            fgs, f0cm, gate, kx, ky,
-            tuple(cfg.photo_factor_weights), photometric.level_ratios(cam_pyr),
-        )
-        ata, atb, err, _ = photometric.photo_normalize(
-            ata, atb, err_t, n_inl, cfg.photo_factor_weights
-        )
-        if psd:
-            ata = graph.psd_correct(ata)
-        gidx = torch.cat(
-            [
-                graph.slot_indices(pe.i0, bd, sel_pose),
-                graph.slot_indices(pe.i1, bd, sel_pose),
-                graph.slot_indices(pe.i0, bd, sel_code),
-                graph.slot_indices(pe.i0, bd, sel_scale),
-            ],
-            dim=-1,
-        )  # [E, 13+CS]
-        h, b = graph.scatter_hessian(h, b, gidx, ata, atb, pe.valid)
-        total_err = total_err + torch.sum(err * pe.valid)
+    with timing.span("lin.photo"):
+        pe = problem.photo_edges
+        if pe.i0.shape[0] > 0:
+            timing.count("edges", pe.i0.shape[0])
+            kf0, fr1, shared = _photo_inputs(problem.window, pe)
+            fgs, f0cm, gate, kx, ky = photometric.photo_prep(
+                _edge_pose(variables, pe.i0), _edge_pose(variables, pe.i1),
+                variables.code[pe.i0], variables.scale[pe.i0], kf0, fr1, shared,
+                cam_pyr, cfg.dpt_eps, soft=soft,
+            )
+            ata, atb, err_t, n_inl = photo_reduce(
+                fgs, f0cm, gate, kx, ky,
+                tuple(cfg.photo_factor_weights), photometric.level_ratios(cam_pyr),
+            )
+            ata, atb, err, _ = photometric.photo_normalize(
+                ata, atb, err_t, n_inl, cfg.photo_factor_weights
+            )
+            if psd:
+                ata = graph.psd_correct(ata)
+            gidx = torch.cat(
+                [
+                    graph.slot_indices(pe.i0, bd, sel_pose),
+                    graph.slot_indices(pe.i1, bd, sel_pose),
+                    graph.slot_indices(pe.i0, bd, sel_code),
+                    graph.slot_indices(pe.i0, bd, sel_scale),
+                ],
+                dim=-1,
+            )  # [E, 13+CS]
+            h, b = graph.scatter_hessian(h, b, gidx, ata, atb, pe.valid)
+            total_err = total_err + torch.sum(err * pe.valid)
 
     # ---- geometric edges: vars (p0, p1, c0, c1, s0, s1), dim 14+2CS ----
-    ge = problem.geo_edges
-    if ge.i0.shape[0] > 0:
-        kf0, kf1, gshared = _geo_inputs(
-            problem.window, ge, variables, cam_pyr[0], which="full"
-        )
-        loss_param = cfg.geo_loss_param_factor * problem.window.avg_sq_bias[ge.i0]
-        ata, atb, err, _ = geometric.geometric_jac_error(
-            _edge_pose(variables, ge.i0), _edge_pose(variables, ge.i1),
-            variables.code[ge.i0], variables.code[ge.i1],
-            variables.scale[ge.i0], variables.scale[ge.i1],
-            kf0, kf1, gshared, cam_pyr[0], cfg.geo_factor_weight,
-            loss_param, cfg.dpt_eps,
-        )
-        if psd:
-            ata = graph.psd_correct(ata)
-        gidx = torch.cat(
-            [
-                graph.slot_indices(ge.i0, bd, sel_pose),
-                graph.slot_indices(ge.i1, bd, sel_pose),
-                graph.slot_indices(ge.i0, bd, sel_code),
-                graph.slot_indices(ge.i1, bd, sel_code),
-                graph.slot_indices(ge.i0, bd, sel_scale),
-                graph.slot_indices(ge.i1, bd, sel_scale),
-            ],
-            dim=-1,
-        )  # [E, 14+2CS]
-        h, b = graph.scatter_hessian(h, b, gidx, ata, atb, ge.valid)
-        total_err = total_err + torch.sum(err * ge.valid)
+    with timing.span("lin.geo"):
+        ge = problem.geo_edges
+        if ge.i0.shape[0] > 0:
+            timing.count("edges", ge.i0.shape[0])
+            kf0, kf1, gshared = _geo_inputs(
+                problem.window, ge, variables, cam_pyr[0], which="full"
+            )
+            loss_param = cfg.geo_loss_param_factor * problem.window.avg_sq_bias[ge.i0]
+            ata, atb, err, _ = geometric.geometric_jac_error(
+                _edge_pose(variables, ge.i0), _edge_pose(variables, ge.i1),
+                variables.code[ge.i0], variables.code[ge.i1],
+                variables.scale[ge.i0], variables.scale[ge.i1],
+                kf0, kf1, gshared, cam_pyr[0], cfg.geo_factor_weight,
+                loss_param, cfg.dpt_eps,
+            )
+            if psd:
+                ata = graph.psd_correct(ata)
+            gidx = torch.cat(
+                [
+                    graph.slot_indices(ge.i0, bd, sel_pose),
+                    graph.slot_indices(ge.i1, bd, sel_pose),
+                    graph.slot_indices(ge.i0, bd, sel_code),
+                    graph.slot_indices(ge.i1, bd, sel_code),
+                    graph.slot_indices(ge.i0, bd, sel_scale),
+                    graph.slot_indices(ge.i1, bd, sel_scale),
+                ],
+                dim=-1,
+            )  # [E, 14+2CS]
+            h, b = graph.scatter_hessian(h, b, gidx, ata, atb, ge.valid)
+            total_err = total_err + torch.sum(err * ge.valid)
 
     # ---- reprojection edges: vars (p0, p1, c0, s0), dim 13+CS ----
-    rp_args = _reproj_inputs(variables, problem, cam_pyr, cfg)
-    if rp_args is not None:
-        re = problem.reproj_edges
-        ata, atb, err, _ = rp_ops.reprojection_jac_error(*rp_args)
-        if psd:
-            ata = graph.psd_correct(ata)
-        gidx = torch.cat(
-            [
-                graph.slot_indices(re.i0, bd, sel_pose),
-                graph.slot_indices(re.i1, bd, sel_pose),
-                graph.slot_indices(re.i0, bd, sel_code),
-                graph.slot_indices(re.i0, bd, sel_scale),
-            ],
-            dim=-1,
-        )
-        h, b = graph.scatter_hessian(h, b, gidx, ata, atb, re.valid)
-        total_err = total_err + torch.sum(err * re.valid)
+    with timing.span("lin.reproj"):
+        rp_args = _reproj_inputs(variables, problem, cam_pyr, cfg)
+        if rp_args is not None:
+            re = problem.reproj_edges
+            timing.count("edges", re.i0.shape[0])
+            ata, atb, err, _ = rp_ops.reprojection_jac_error(*rp_args)
+            if psd:
+                ata = graph.psd_correct(ata)
+            gidx = torch.cat(
+                [
+                    graph.slot_indices(re.i0, bd, sel_pose),
+                    graph.slot_indices(re.i1, bd, sel_pose),
+                    graph.slot_indices(re.i0, bd, sel_code),
+                    graph.slot_indices(re.i0, bd, sel_scale),
+                ],
+                dim=-1,
+            )
+            h, b = graph.scatter_hessian(h, b, gidx, ata, atb, re.valid)
+            total_err = total_err + torch.sum(err * re.valid)
 
     # ---- priors ----
-    pr = problem.priors
-    kf_range = torch.arange(k, device=dev)
-    ata_c, atb_c, err_c = priors.code_prior(
-        variables.code, torch.zeros_like(variables.code), cfg.code_factor_weight
-    )
-    h, b = graph.scatter_hessian(
-        h, b, graph.slot_indices(kf_range, bd, sel_code), ata_c, atb_c, pr.code_valid
-    )
-    total_err = total_err + torch.sum(err_c * pr.code_valid)
+    with timing.span("lin.priors"):
+        pr = problem.priors
+        kf_range = torch.arange(k, device=dev)
+        ata_c, atb_c, err_c = priors.code_prior(
+            variables.code, torch.zeros_like(variables.code), cfg.code_factor_weight
+        )
+        h, b = graph.scatter_hessian(
+            h, b, graph.slot_indices(kf_range, bd, sel_code), ata_c, atb_c, pr.code_valid
+        )
+        total_err = total_err + torch.sum(err_c * pr.code_valid)
 
-    ata_s, atb_s, err_s = priors.scale_prior(
-        variables.scale, pr.scale_init, cfg.init_scale_prior_weight
-    )
-    h, b = graph.scatter_hessian(
-        h, b, graph.slot_indices(kf_range, bd, sel_scale), ata_s, atb_s, pr.scale_valid
-    )
-    total_err = total_err + torch.sum(err_s * pr.scale_valid)
+        ata_s, atb_s, err_s = priors.scale_prior(
+            variables.scale, pr.scale_init, cfg.init_scale_prior_weight
+        )
+        h, b = graph.scatter_hessian(
+            h, b, graph.slot_indices(kf_range, bd, sel_scale), ata_s, atb_s, pr.scale_valid
+        )
+        total_err = total_err + torch.sum(err_s * pr.scale_valid)
 
-    ata_p, atb_p, err_p = priors.pose_prior(
-        variables.pose, pr.pose_target, cfg.init_pose_prior_weight
-    )
-    h, b = graph.scatter_hessian(
-        h, b, graph.slot_indices(kf_range, bd, sel_pose), ata_p, atb_p, pr.pose_valid
-    )
-    total_err = total_err + torch.sum(err_p * pr.pose_valid)
+        ata_p, atb_p, err_p = priors.pose_prior(
+            variables.pose, pr.pose_target, cfg.init_pose_prior_weight
+        )
+        h, b = graph.scatter_hessian(
+            h, b, graph.slot_indices(kf_range, bd, sel_pose), ata_p, atb_p, pr.pose_valid
+        )
+        total_err = total_err + torch.sum(err_p * pr.pose_valid)
     return h, b, total_err
 
 
@@ -464,6 +473,7 @@ def total_error(variables: Variables, problem: BAProblem, cam_pyr, cfg):
     return total + torch.sum(err_p * pr.pose_valid)
 
 
+@timing.span("ba.run_ba")
 def run_ba(
     variables: Variables,
     problem: BAProblem,
@@ -480,8 +490,9 @@ def run_ba(
     cfg.relin_param_inc_thresh."""
     _check(variables, problem, cfg)
     iters = max_iters if max_iters is not None else cfg.max_gn_iters
-    problem = prepare_problem(problem, cam_pyr)
-    return graph.lm_loop(
+    with timing.span("ba.prepare"):
+        problem = prepare_problem(problem, cam_pyr)
+    result = graph.lm_loop(
         variables,
         lambda v: linearize(v, problem, cam_pyr, cfg),
         lambda v: total_error(v, problem, cam_pyr, cfg),
@@ -495,6 +506,8 @@ def run_ba(
         conv_fn=relin_conv(cfg) if use_conv else None,
         solver=resolve_solver(cfg, variables.num_kf),
     )
+    timing.count("lm.iters", result[2])
+    return result
 
 
 def relin_conv(cfg):

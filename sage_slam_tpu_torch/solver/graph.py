@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..geometry.se3 import SE3, retract
+from ..utils import timing
 from .psd import psd_bump
 
 
@@ -65,6 +66,7 @@ def slot_indices(kf_idx: torch.Tensor, block_dim: int, sel: torch.Tensor) -> tor
     return kf_idx[..., None] * block_dim + sel
 
 
+@timing.span("graph.scatter_hessian")
 def scatter_hessian(
     h: torch.Tensor,  # [D, D]
     b: torch.Tensor,  # [D]
@@ -83,6 +85,7 @@ def scatter_hessian(
     comparisons use float32-roundoff tolerances."""
     d = h.shape[-1]
     e, s = gidx.shape
+    timing.count("entries", e * s * d)
     cols = torch.arange(d, dtype=gidx.dtype, device=gidx.device)
     p = (gidx[..., None] == cols).to(h.dtype) * valid.to(h.dtype)[:, None, None]
     pf = p.reshape(e * s, d)
@@ -207,36 +210,48 @@ def lm_loop(
     bd = variables.block_dim
     dtype = variables.scale.dtype
     device = variables.scale.device
-    mask2d = expand_mask(update_mask, bd).to(dtype)
-    free = mask2d.reshape(-1)
     f32 = np.float32
     max_damp32 = f32(max_damp)
+    with timing.span("lm.init"):
+        mask2d = expand_mask(update_mask, bd).to(dtype)
+        free = mask2d.reshape(-1)
+        error = torch.tensor(float("inf"), dtype=dtype, device=device)
+        h, b = empty_system(k, bd, dtype, device)
 
     accepted = variables
-    error = torch.tensor(float("inf"), dtype=dtype, device=device)
-    h, b = empty_system(k, bd, dtype, device)
     candidate = variables
     damping = f32(init_damp)
     iteration = 0
     converged = False
     while iteration < max_iters and damping <= max_damp32 and not converged:
-        h_c, b_c, err_c = linearize_fn(candidate)
-        # first iteration always accepts: the accepted error starts at +inf
-        accept = bool(err_c < error - min_error_dec)
-        if accept:
-            accepted, error, h, b = candidate, err_c, h_c, b_c
-            damping = max(damping / f32(damp_dec), f32(min_damp))
-        else:
-            damping = damping * f32(damp_inc)
-        delta, b_masked = _damped_solve(h, b, float(damping), min_damp, free, solver, k, bd)
-        candidate = accepted.apply_delta(delta.reshape(k, bd), update_mask)
-        # gate on accept: a post-reject delta is small because the damping
-        # is high, not because the graph converged
-        converged = accept and conv_fn is not None and bool(
-            conv_fn(delta.reshape(k, bd) * mask2d, b_masked.reshape(k, bd))
-        )
-        iteration += 1
-    err_c = error_fn(candidate)
-    if bool(err_c < error - min_error_dec):
+        with timing.span("lm.iter"):
+            h_c, b_c, err_c = linearize_fn(candidate)
+            # first iteration always accepts: the accepted error starts at +inf
+            with timing.span("lm.accept"):
+                accept = bool(err_c < error - min_error_dec)
+                timing.count("lm.host_reads")
+            timing.count("lm.accepted" if accept else "lm.rejected")
+            if accept:
+                accepted, error, h, b = candidate, err_c, h_c, b_c
+                damping = max(damping / f32(damp_dec), f32(min_damp))
+            else:
+                damping = damping * f32(damp_inc)
+            with timing.span("lm.solve"):
+                delta, b_masked = _damped_solve(h, b, float(damping), min_damp, free, solver, k, bd)
+            with timing.span("lm.retract"):
+                delta = delta.reshape(k, bd)
+                candidate = accepted.apply_delta(delta, update_mask)
+            # gate on accept: a post-reject delta is small because the damping
+            # is high, not because the graph converged
+            if accept and conv_fn is not None:
+                with timing.span("lm.accept"):
+                    converged = bool(conv_fn(delta * mask2d, b_masked.reshape(k, bd)))
+                    timing.count("lm.host_reads")
+            iteration += 1
+    with timing.span("ba.total_error"):
+        err_c = error_fn(candidate)
+        better = bool(err_c < error - min_error_dec)
+        timing.count("lm.host_reads")
+    if better:
         return candidate, err_c, iteration, converged
     return accepted, error, iteration, converged

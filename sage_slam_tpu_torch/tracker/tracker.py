@@ -40,6 +40,7 @@ from ..ops import match_geometry as mg_ops
 from ..ops import photometric
 from ..ops import reprojection as rp_ops
 from ..ops.robust_loss import fair_error
+from ..utils import timing
 
 
 class TrackerRef(NamedTuple):
@@ -220,6 +221,7 @@ class LMResult(NamedTuple):
     iterations: int
 
 
+@timing.span("tracker.lm_track")
 def lm_track(init_rot, init_trans, ref: TrackerRef, target: TrackerTarget,
              cam_pyr: CameraPyramid, cfg, terms: TrackTerms = TrackTerms(),
              use_photo: bool = True, with_scale: bool = False, init_scale=1.0,
@@ -230,6 +232,14 @@ def lm_track(init_rot, init_trans, ref: TrackerRef, target: TrackerTarget,
     damp_inc_factor, min_grad_thresh, min_param_inc_thresh,
     jac_update_err_inc_threshold, max_num_iters, photo_factor_weights,
     dpt_eps; optionally coarse_to_fine and soft_inlier_gate."""
+    res = _lm_track(init_rot, init_trans, ref, target, cam_pyr, cfg, terms, use_photo, with_scale,
+                    init_scale, max_iters)
+    timing.count("lm.iters", res.iterations)
+    return res
+
+
+def _lm_track(init_rot, init_trans, ref, target, cam_pyr, cfg, terms, use_photo, with_scale,
+              init_scale, max_iters) -> LMResult:
     target = target.with_packed(cam_pyr)
     budget = max_iters if max_iters is not None else cfg.max_num_iters
     weights = cfg.photo_factor_weights
@@ -240,12 +250,10 @@ def lm_track(init_rot, init_trans, ref: TrackerRef, target: TrackerTarget,
         cfg_coarse = dataclasses.replace(cfg, coarse_to_fine=False, photo_factor_weights=coarse)
         cfg_fine = dataclasses.replace(cfg, coarse_to_fine=False)
         half = max(budget // 2, 1)
-        kw = dict(terms=terms, use_photo=use_photo, with_scale=with_scale)
-        r1 = lm_track(init_rot, init_trans, ref, target, cam_pyr, cfg_coarse,
-                      init_scale=init_scale, max_iters=half, **kw)
-        r2 = lm_track(r1.rot, r1.trans, ref, target, cam_pyr, cfg_fine,
-                      init_scale=r1.scale if with_scale else init_scale,
-                      max_iters=budget - half, **kw)
+        r1 = _lm_track(init_rot, init_trans, ref, target, cam_pyr, cfg_coarse, terms, use_photo,
+                       with_scale, init_scale, half)
+        r2 = _lm_track(r1.rot, r1.trans, ref, target, cam_pyr, cfg_fine, terms, use_photo,
+                       with_scale, r1.scale if with_scale else init_scale, budget - half)
         return LMResult(r2.rot, r2.trans, r2.scale, r2.error, r1.iterations + r2.iterations)
 
     dim = 7 if with_scale else 6

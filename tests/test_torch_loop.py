@@ -464,8 +464,7 @@ def test_native_hull_and_median():
 
 def test_native_queue_worker_and_profiler():
     """FIFO queue with a timed-out pop; a 50 Hz worker runs 5-40 times in
-    0.35 s; a worker draining the queue sees every item in order; the
-    profiler reports a tic/toc pair."""
+    0.35 s; a worker draining the queue sees every item in order."""
     q = native.TaskQueue()
     q.push(42)
     q.push(7)
@@ -497,13 +496,6 @@ def test_native_queue_worker_and_profiler():
     assert 5 <= count["n"] <= 40
     assert processed == [0, 1, 2, 3, 4]
 
-    native.prof_enable(True)
-    native.tic("unit")
-    time.sleep(0.01)
-    native.toc("unit")
-    assert "unit" in native.prof_report()
-    native.prof_enable(False)
-
 
 def test_native_worker_exception_is_kept_and_stops_the_workers():
     """A worker that raises: the exception is kept (not printed and
@@ -533,37 +525,3 @@ def test_native_worker_exception_is_kept_and_stops_the_workers():
         rt.check()
     assert isinstance(info.value.__cause__, ValueError) and calls["bad"] == 3
     rt.close()
-
-
-# ---------------------------------------------------------------- timing
-
-
-def test_timing_records_each_call():
-    """utils/timing: ``timed`` as a context manager and as a decorator
-    records one (host ms, CUDA-event ms) per call in call order (nan
-    without cuda_events); ``report`` sums them; nothing is recorded while
-    disabled; ``reset`` clears."""
-    from sage_slam_tpu_torch.utils import timing
-
-    @timing.timed("decorated")
-    def work(seconds):
-        time.sleep(seconds)
-        return seconds
-
-    timing.reset()
-    work(0.001)
-    assert timing.calls("decorated") == []
-    timing.enable(True)
-    try:
-        assert work(0.02) == 0.02 and work(0.001) == 0.001
-        with timing.timed("block"):
-            time.sleep(0.001)
-    finally:
-        timing.enable(False)
-    runs = timing.calls("decorated")
-    assert len(runs) == 2 and runs[0][0] >= 20.0 > runs[1][0] and all(np.isnan(ev) for _, ev in runs)
-    assert len(timing.calls("block")) == 1
-    lines = timing.report().splitlines()
-    assert [ln.split(":")[0] for ln in lines] == ["block", "decorated"] and "calls 2" in lines[1]
-    timing.reset()
-    assert timing.report() == "" and timing.calls("decorated") == []
