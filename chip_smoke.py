@@ -221,7 +221,22 @@ Phases, each of which exits non-zero on failure:
    rank problem (E=64 on one rank, E=32 a rank on two, N=1024) and
    growth_curve's 128-keyframe full step (E=284, N=1024), and the L2
    flush's check (flush_probe) is made again, before the scaling runs;
-14. a JSON line listing every kernel, then the card line, then the last
+14. the prep kernel (ops/photo_prep, csrc/photo_prep.cu): its five
+   outputs against the plain chain's (photometric.photo_prep) on the same
+   inputs, element by element, and K1 on each, at the bench point (E=24),
+   a mapper window (E=48), growth_curve's full step (E=284, N=1024) and
+   the benchmark cell's problem (cell_problem: 64 keyframes through the
+   mapper, E=372), each with drawn codes and scales, with and without the
+   prepared decode tables, and with points behind the camera, outside
+   every image and at NaN coordinates (prep_variants), both gates; the
+   tolerances and their reasons are PREP_*'s. Fails unless the source
+   features are bit-equal, every other output is within its tolerance
+   (a gate may differ only at a point next to a step of the gate) and
+   run_ba on the cell's problem makes one prep launch, one
+   photo.prep_kernel count and one K1 launch an LM iteration. Times the
+   kernel (cold L2, warm beside) against its bound (prep_bound) and the
+   plain chain, at the bench point and the cell's shape;
+15. a JSON line listing every kernel, then the card line, then the last
    line ``{"ok": true, "device": {...}}``.
 
 K1's times (phases 5-13) are device times with a cold L2: a 96 MB scratch
@@ -2658,6 +2673,343 @@ def programs_path(dev, card: str, peaks) -> dict:
                 max_rel_err=max(h["max_rel_err"] for h in holds.values()))
 
 
+# ---- 14. the prep kernel (ops/photo_prep, csrc/photo_prep.cu) ----
+
+# Tolerances of the prep kernel against the plain chain (photometric.
+# photo_prep) on the same inputs. The two compute the warp's coordinates
+# from sums in different orders: the 16-term code . jac dot product and the
+# 3x3 products are cuBLAS batched products in the plain chain and FMA chains
+# in the kernel, a few float32 roundings apart, so a coordinate moves by a
+# few ulps of itself (~2e-5 px at 80 px). A sample moves by its bilinear
+# slope times that, at most twice its block's largest value a pixel, and the
+# coarse levels' hat-weight matmuls round their sums in another order
+# again (~1e-6 of the values). The K-rows are the same formulas in other
+# roundings, but some cancel: the depth, code and scale rows are
+# fx (rh_x / z - x rh_z / z^2) times a factor, two terms that nearly cancel
+# on a short baseline, so their float32 error is relative to the terms,
+# not to the row (up to 2e-4 of the row's max in the cell). Each K-row is
+# therefore held to the plain chain's own accuracy: both against the plain
+# chain evaluated in float64 on the same inputs, the kernel's largest error
+# in a row within PREP_KROW_FACTOR of the plain chain's (or of 1e-7 of the
+# row's max, where that is larger): the largest such ratio over the 10,788
+# rows of the cell's problem read 2.52 on the card, while a wrong term
+# reads errors of the order of the row itself, a thousand times the plain
+# chain's. The source features are a copy and must be bit-equal.
+PREP_FGS_ATOL = 2e-4  # of max |sample| over one edge's level block
+PREP_KROW_FACTOR = 8.0
+PREP_KROW_FLOOR = 1e-7  # of max |value| over one edge's K-row
+PREP_GATE_ATOL = 1e-4  # the soft gate: a bilinear of a 0/1 mask, slope <= 1 a pixel
+# the hard gate (nearest pixel, half up) and the z > eps test are steps: a
+# point within this distance of a step may fall either side
+PREP_STEP_PX = 1e-3
+PREP_STEP_Z = 1e-5
+# K1 on the kernel's prep against K1 on the plain chain's (phase 4's
+# linearize tolerance), on edges without a point at a step
+PREP_K1_RTOL, PREP_K1_ATOL = 1e-4, 1e-5  # atol of max |ata|
+
+
+def prep_bound(prep, problem, e_sel, peak_bw: float):
+    """The prep kernel's least time for these edges: its outputs written
+    once, and once each the source rows of the distinct source keyframes
+    (homo, the depth decode, the source features) and the pixel table of
+    the distinct target frames, at the memory rate -> (ms, bytes)."""
+    w = problem.window
+    out_b = sum(t.numel() * t.element_size() for t in prep)
+    i0, i1 = (x[e_sel] for x in (problem.photo_edges.i0, problem.photo_edges.i1))
+    k = w.loc1d.shape[0]
+    src_row = (w.homo.numel() + w.bias_at.numel() + w.jac_at.numel() + w.src_feats.numel()) * 4 // k
+    frame = w.pixel_fg.numel() * 4 // k
+    nbytes = out_b + len(set(i0.tolist())) * src_row + len(set(i1.tolist())) * frame
+    return nbytes / peak_bw * 1e3, nbytes
+
+
+def _plain_prep(variables, window, pe, pyr, cfg, soft):
+    from sage_slam_tpu_torch.ops import photometric
+    from sage_slam_tpu_torch.solver import ba
+
+    kf0, fr1, shared = ba._photo_inputs(window, pe)
+    return photometric.photo_prep(
+        ba._edge_pose(variables, pe.i0), ba._edge_pose(variables, pe.i1), variables.code[pe.i0],
+        variables.scale[pe.i0], kf0, fr1, shared, pyr, cfg.dpt_eps, soft=soft)
+
+
+def _double(tree):
+    """A (nested) NamedTuple or tuple with its float32 tensors in float64."""
+    if isinstance(tree, torch.Tensor):
+        return tree.double() if tree.dtype == torch.float32 else tree
+    if isinstance(tree, tuple):
+        items = [_double(x) for x in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return tree
+
+
+def _near_steps(variables, window, pe, pyr, cfg):
+    """[E, N]: points whose plain level-0 coordinate lies within
+    PREP_STEP_PX of the nearest rule's step (a half pixel) or whose z lies
+    within PREP_STEP_Z of eps, relative."""
+    from sage_slam_tpu_torch.ops import photometric
+    from sage_slam_tpu_torch.solver import ba
+
+    kf0, _, shared = ba._photo_inputs(window, pe)
+    out = photometric._warp_project_cm(
+        ba._edge_pose(variables, pe.i0), ba._edge_pose(variables, pe.i1), variables.code[pe.i0],
+        variables.scale[pe.i0], kf0, shared, pyr[0], cfg.dpt_eps)
+    x1, u1, v1 = out[4], out[6], out[7]
+    near = torch.zeros_like(u1, dtype=torch.bool)
+    for c in ((u1 + 0.5) - 0.5, (v1 + 0.5) - 0.5):
+        near |= ((c - torch.floor(c)) - 0.5).abs() < PREP_STEP_PX
+    near |= (x1[:, 2] - cfg.dpt_eps).abs() < PREP_STEP_Z * cfg.dpt_eps
+    return near
+
+
+def _block_excess(got, ref, atol_share, dims):
+    """Elements of |got - ref| over atol_share x max |ref| of their block
+    (max over ``dims``), NaN positions apart -> (excess mask, largest
+    |d| / block max, NaN positions differ)."""
+    nan_g, nan_r = torch.isnan(got), torch.isnan(ref)
+    g, r = got.nan_to_num(0.0).double(), ref.nan_to_num(0.0).double()
+    scale = r.abs().amax(dim=dims, keepdim=True).clamp(min=1e-30)
+    rel = (g - r).abs() / scale
+    return rel > atol_share, float(rel.max()), bool((nan_g != nan_r).any())
+
+
+def prep_compare(variables, window, pe, pyr, cfg, soft, label):
+    """The kernel's five outputs against the plain chain's, element by
+    element, then K1 on each -> (stats, faults)."""
+    from sage_slam_tpu_torch.ops import photo_prep as pp
+    from sage_slam_tpu_torch.ops import photo_reduce as pr
+    from sage_slam_tpu_torch.ops import photometric
+    from sage_slam_tpu_torch.solver import ba
+
+    before = pp.photo_prep_edges.launches
+    got = ba._photo_prep(variables, window, pe, pyr, cfg.dpt_eps, soft)
+    ref = _plain_prep(variables, window, pe, pyr, cfg, soft)
+    torch.cuda.synchronize()
+    faults = []
+    if pp.photo_prep_edges.launches != before + 1:
+        faults.append("the dispatch did not launch the kernel")
+    fgs, f0, gate, kx, ky = got
+    fgs_r, f0_r, gate_r, kx_r, ky_r = ref
+    if not torch.equal(f0, f0_r):
+        faults.append("f0_cm is not bit-equal")
+    near = _near_steps(variables, window, pe, pyr, cfg)
+    stats = dict(points=int(gate.numel()), near_steps=int(near.sum()))
+    # fgs per (edge, level, channel block of f1 | gx | gy)
+    e, lv, c3, n = fgs.shape
+    blocks = lambda t: t.reshape(e, lv, 3, c3 // 3, n)  # noqa: E731
+    over, stats["fgs"], nan_diff = _block_excess(blocks(fgs), blocks(fgs_r), PREP_FGS_ATOL, (3, 4))
+    if nan_diff or bool(over.any()):
+        faults.append(f"fgs: {int(over.sum())} elements over {PREP_FGS_ATOL} of their block's max "
+                      f"(largest {stats['fgs']:.3g}), NaN positions differ: {nan_diff}")
+    exact = _plain_prep(_double(variables), _double(window), pe, pyr, cfg, soft)
+    for name, a, b, t in (("kx", kx, kx_r, exact[3]), ("ky", ky, ky_r, exact[4])):
+        nan_diff = bool((torch.isnan(a) != torch.isnan(b)).any())
+        t = t.nan_to_num(0.0)
+        err_k = (a.double().nan_to_num(0.0) - t).abs().amax(dim=2)  # [E, dim]
+        err_p = (b.double().nan_to_num(0.0) - t).abs().amax(dim=2)
+        ratio = err_k / torch.maximum(err_p, PREP_KROW_FLOOR * t.abs().amax(dim=2)).clamp(min=1e-300)
+        stats[name] = float(ratio.max())
+        stats[name + "_plain"] = float((err_p / t.abs().amax(dim=2).clamp(min=1e-300)).max())
+        if nan_diff or bool((ratio > PREP_KROW_FACTOR).any()):
+            faults.append(f"{name}: {int((ratio > PREP_KROW_FACTOR).sum())} rows whose error against "
+                          f"float64 is over {PREP_KROW_FACTOR}x the plain chain's (largest "
+                          f"{stats[name]:.3g}x), NaN positions differ: {nan_diff}")
+    del exact
+    dg = (gate.nan_to_num(0.0) - gate_r.nan_to_num(0.0)).abs()
+    gate_nan = bool((torch.isnan(gate) != torch.isnan(gate_r)).any())
+    off = (dg > (PREP_GATE_ATOL if soft else 0.0))
+    stats["gate"] = float(dg.max())
+    stats["gate_steps"] = int((off & near).sum())
+    if gate_nan or bool((off & ~near).any()):
+        faults.append(f"gate: {int((off & ~near).sum())} points differ away from a step "
+                      f"(largest {stats['gate']:.3g}), NaN positions differ: {gate_nan}")
+    # K1 on each prep, on the edges without a point at a step
+    ratios, weights = photometric.level_ratios(pyr), tuple(cfg.photo_factor_weights)
+    saved = pr.photo_reduce.launches
+    k1 = [tuple(x.clone() for x in pr.photo_reduce(*p, weights, ratios)) for p in (got, ref)]
+    pr.photo_reduce.launches = saved
+    keep = ~(off & near).any(dim=1)
+    stats["k1_edges"] = int(keep.sum())
+    scale = float(k1[1][0][keep].double().nan_to_num(0.0).abs().max().clamp(min=1e-30))
+    for name, a, b in zip(("ata", "atb", "err", "n_inl"), k1[0], k1[1]):
+        a, b = a[keep].double(), b[keep].double()
+        atol = PREP_K1_ATOL * scale if name in ("ata", "atb") else 0.0
+        bad = ~torch.isclose(a, b, rtol=PREP_K1_RTOL, atol=atol, equal_nan=True)
+        # |d| over max |ata| for ata and atb, over |value| for err and n_inl
+        d = (a - b).nan_to_num(0.0).abs() / (scale if atol else b.nan_to_num(0.0).abs().clamp(min=1e-30))
+        stats[f"k1_{name}"] = float(d.max()) if d.numel() else 0.0
+        if bool(bad.any()):
+            faults.append(f"K1 {name}: {int(bad.sum())} entries outside rtol {PREP_K1_RTOL}"
+                          f"{f' + atol {PREP_K1_ATOL} max|ata|' if atol else ''}")
+    say(f"prep kernel vs plain: {label} {'soft' if soft else 'hard'} gate E={e} N={n}: largest |d| / "
+        f"block max fgs {stats['fgs']:.3g}; K-rows' error against float64 over the plain chain's: kx "
+        f"{stats['kx']:.3g}x, ky {stats['ky']:.3g}x (the plain chain's: {stats['kx_plain']:.3g}, "
+        f"{stats['ky_plain']:.3g} of the row's max); gate "
+        f"{stats['gate']:.3g} ({stats['gate_steps']} at a step of {stats['near_steps']} near one); K1 on "
+        f"{stats['k1_edges']} edges, |d| over max |ata|: ata {stats['k1_ata']:.3g}, atb "
+        f"{stats['k1_atb']:.3g}; relative: err {stats['k1_err']:.3g}, n_inl {stats['k1_n_inl']:.3g}; "
+        f"{'ok' if not faults else 'FAULTS: ' + '; '.join(faults)}")
+    return stats, faults
+
+
+def prep_variants(variables, window, seed: int):
+    """(label, variables, window): codes and scales drawn about the given
+    ones with the prepared decode tables (bias_at, jac_at) and without them
+    (the bias_flat[loc] path), and with keyframe 1 turned half a turn about
+    y (its points behind the cameras), keyframe 2 moved 50 units along x
+    (outside every image) and keyframe 3's scale NaN (NaN coordinates)."""
+    from sage_slam_tpu_torch.geometry.se3 import SE3
+    from sage_slam_tpu_torch.solver.graph import Variables
+
+    dev = variables.scale.device
+    g = torch.Generator().manual_seed(seed)
+    k, cs = variables.code.shape
+    code = variables.code + 0.1 * torch.randn((k, cs), generator=g).to(dev)
+    scale = variables.scale * (1.0 + 0.1 * torch.randn(k, generator=g)).to(dev)
+    v = Variables(variables.pose, code, scale)
+    rot, trans, scale_f = variables.pose.rot.clone(), variables.pose.trans.clone(), scale.clone()
+    rot[1] = rot[1] @ torch.diag(torch.tensor([-1.0, 1.0, -1.0], device=dev))
+    trans[2, 0] += 50.0
+    scale_f[3] = float("nan")
+    faulty = Variables(SE3(rot, trans), code, scale_f)
+    return [("decode tables", v, window), ("bias_flat[loc]", v, window._replace(bias_at=None, jac_at=None)),
+            ("behind, outside, NaN", faulty, window)]
+
+
+def cell_problem(dev, keyframes: int = 64, connections: int = 3):
+    """The benchmark cell's problem (refine_map64.full_graph_lm): a map of
+    ``keyframes`` keyframes built through the mapper at SlamConfig()'s
+    widths (random networks, synthetic.mapper_scene), each with
+    photometric and geometric factors both ways to its ``connections``
+    predecessors, and the compact problem mapping_step(full=True) solves
+    -> (variables, prepared problem, update mask, pyramid, config)."""
+    from sage_slam_tpu_torch import synthetic
+    from sage_slam_tpu_torch.config import SlamConfig
+    from sage_slam_tpu_torch.geometry.camera import CameraPyramid
+    from sage_slam_tpu_torch.geometry.se3 import SE3
+    from sage_slam_tpu_torch.mapping.mapper import Mapper
+    from sage_slam_tpu_torch.models import depth_network, feature_network
+    from sage_slam_tpu_torch.solver import ba
+
+    cfg = SlamConfig()
+    scene = synthetic.mapper_scene(keyframes, seed=0, height=cfg.net_input_size[0],
+                                   width=cfg.net_input_size[1])
+    pyr = CameraPyramid.build(scene.camera, cfg.pyramid_levels)
+    gen = torch.Generator().manual_seed(0)
+    dnet = depth_network.init_network(
+        gen, depth_network.DepthNetConfig(basis_inner=((128, 128, cfg.code_size),)))
+    fnet = feature_network.init_network(gen, feature_network.FeatureNetConfig())
+    mapper = Mapper(cfg, pyr, scene.mask_out, dnet, fnet, video_mask_in=scene.mask_in, device=dev)
+    images = torch.from_numpy(scene.images).to(dev)
+    mapper.init_one_frame(0.0, images[0])
+    for f in range(1, keyframes):
+        pose = SE3(torch.from_numpy(scene.rot[f]).to(dev), torch.from_numpy(scene.trans[f]).to(dev))
+        fr = mapper.build_frame(0.1 * f, images[f], pose=pose)
+        n = mapper.store.num_active
+        mapper.enqueue_keyframe(fr, list(range(n - 1, max(-1, n - 1 - connections), -1)))
+    with mapper.store.lock:
+        n, _, v = mapper.store.snapshot()
+        problem, start, umask, _, _ = mapper._compact_step_inputs(n, v, True)
+    return start, ba.prepare_problem(problem, pyr), umask, pyr, cfg
+
+
+def prep_times(variables, problem, pyr, cfg, card: str, peak_bw: float, label: str) -> dict:
+    """The prep kernel and the plain chain timed on one linearization's
+    edges (cold L2, the warm reading beside) against the kernel's bound.
+    Launches made here are not counted."""
+    from sage_slam_tpu_torch.ops import photo_prep as pp
+    from sage_slam_tpu_torch.solver import ba
+
+    pe, w, soft = problem.photo_edges, problem.window, cfg.soft_inlier_gate
+    saved = pp.photo_prep_edges.launches
+
+    def kernel():
+        ba._photo_prep(variables, w, pe, pyr, cfg.dpt_eps, soft)
+
+    def plain():
+        _plain_prep(variables, w, pe, pyr, cfg, soft)
+
+    prep = ba._photo_prep(variables, w, pe, pyr, cfg.dpt_eps, soft)
+    bound_ms, nbytes = prep_bound(prep, problem, slice(None), peak_bw)
+    del prep
+    reps = 20
+    t = dict(ms=device_ms(kernel, reps, "photo_prep", cold=True), warm_ms=device_ms(kernel, reps, "photo_prep"),
+             plain_ms=device_ms(plain, reps, cold=True), warm_plain_ms=device_ms(plain, reps),
+             events_ms=cuda_ms(kernel, reps), bound_ms=bound_ms, bytes=nbytes,
+             E=int(pe.i0.shape[0]), N=int(w.loc1d.shape[1]))
+    pp.photo_prep_edges.launches = saved
+    say(f"time [{card}] prep kernel at {label} (E={t['E']}, N={t['N']}): device cold L2 {t['ms']:.6f} ms "
+        f"({bound_ms / t['ms']:.1%} of its bound {bound_ms:.6f} ms, {nbytes / 1e6:.1f} MB), warm "
+        f"{t['warm_ms']:.6f} ms, CUDA events around {reps} warm wrapper calls {t['events_ms']:.5f} ms a "
+        f"call; the plain chain cold {t['plain_ms']:.4f} ms, warm {t['warm_plain_ms']:.4f} ms "
+        f"({t['plain_ms'] / t['ms']:.1f}x the kernel, cold)")
+    if bound_ms / t["ms"] > K1_MAX_SHARE:
+        fail(f"prep kernel at {label}: cold reading {t['ms']:.6f} ms is {bound_ms / t['ms']:.1%} of its bound")
+    return t
+
+
+def prep_path(dev, card: str, peaks) -> dict:
+    """Phase 14: the prep kernel against the plain chain at the shapes the
+    port gives it, each with three variants and both gates; one prep launch
+    an LM iteration of run_ba on the cell's problem; times at the bench
+    point and the cell's shape."""
+    from sage_slam_tpu_torch import synthetic
+    from sage_slam_tpu_torch.bench import scaling
+    from sage_slam_tpu_torch.config import MapperConfig
+    from sage_slam_tpu_torch.ops import photo_prep as pp
+    from sage_slam_tpu_torch.ops import photo_reduce as pr
+    from sage_slam_tpu_torch.solver import ba
+    from sage_slam_tpu_torch.utils import timing
+
+    t0 = time.perf_counter()
+    peak_bw = peaks[0]
+    mcfg = MapperConfig()
+    shapes = []
+    v, p, pyr = synthetic.bench_problem(device=dev)
+    shapes.append(("the bench point", v, ba.prepare_problem(p, pyr), pyr, mcfg))
+    v, p, pyr = synthetic.bench_problem(device=dev, n_photo=48, n_geo=48)
+    shapes.append(("a mapper window", v, ba.prepare_problem(p, pyr), pyr, mcfg))
+    for g in scaling.growth_points(dev):
+        pass  # the last graph, drawn after the others as growth_curve draws it
+    shapes.append((f"growth_curve's full step at {g.keyframes} keyframes", g.variables,
+                   ba.prepare_problem(g.problems["full"], g.cam_pyr), g.cam_pyr, mcfg))
+    del g
+    cell_v, cell_p, cell_mask, cell_pyr, cell_cfg = cell_problem(dev)
+    shapes.append(("the cell's problem", cell_v, cell_p, cell_pyr, cell_cfg.mapper))
+    faults, worst = [], {}
+    for i, (label, v, p, pyr, cfg) in enumerate(shapes):
+        for vlabel, vv, w in prep_variants(v, p.window, seed=40 + i):
+            for soft in (False, True):
+                stats, bad = prep_compare(vv, w, p.photo_edges, pyr, cfg, soft, f"{label}, {vlabel},")
+                faults += [f"{label}, {vlabel}, {'soft' if soft else 'hard'} gate: {f}" for f in bad]
+                for key, val in stats.items():
+                    if isinstance(val, float):
+                        worst[key] = max(worst.get(key, 0.0), val)
+    if faults:
+        fail("prep kernel against the plain chain:\n  " + "\n  ".join(faults))
+    # one prep launch an LM iteration of run_ba on the cell's problem
+    timing.reset()
+    timing.enable(True)
+    launches, k1 = pp.photo_prep_edges.launches, pr.photo_reduce.launches
+    _, err, iters, _ = ba.run_ba(cell_v, cell_p, cell_pyr, cell_cfg.mapper, cell_mask,
+                                 cell_cfg.mapper.max_gn_iters)
+    timing.enable(False)
+    launches, k1 = pp.photo_prep_edges.launches - launches, pr.photo_reduce.launches - k1
+    counted = sum(r.counts.get("photo.prep_kernel", 0) for r in timing.records() if r.name == "lin.photo")
+    timing.reset()
+    say(f"prep kernel on the cell's problem: run_ba {iters} LM iterations, error {float(err):.6g}; prep "
+        f"launches {launches}, photo.prep_kernel counts {counted}, K1 launches {k1}")
+    if not (launches == counted == k1 == iters) or not bool(torch.isfinite(err)):
+        fail(f"run_ba on the cell's problem: {launches} prep launches, {counted} counted, {k1} K1 launches "
+             f"for {iters} LM iterations (error {float(err)})")
+    times = {"bench": prep_times(*shapes[0][1:], card, peak_bw, "the bench point"),
+             "cell": prep_times(cell_v, cell_p, cell_pyr, cell_cfg.mapper, card, peak_bw,
+                                "the cell's problem")}
+    secs = time.perf_counter() - t0
+    say(f"phase 14 took {secs:.1f} s")
+    return dict(worst=worst, times=times, run_ba_launches=launches, seconds=secs)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old-source", default=None,
@@ -2672,6 +3024,7 @@ def main() -> None:
     from sage_slam_tpu_torch.config import MapperConfig
     from sage_slam_tpu_torch.bench import card_line, peaks_for
     from sage_slam_tpu_torch.device import set_f32_precision
+    from sage_slam_tpu_torch.ops import photo_prep as pp
     from sage_slam_tpu_torch.ops import photo_reduce as pr
     from sage_slam_tpu_torch.ops import photometric
     from sage_slam_tpu_torch.solver import ba
@@ -2913,7 +3266,10 @@ def main() -> None:
     programs = programs_path(dev, card, (peak_bw, peak_flops))
     max_err, max_rel = max(max_err, programs["max_abs_err"]), max(max_rel, programs["max_rel_err"])
 
-    # ---- 14. result ----
+    # ---- 14. the prep kernel ----
+    prepped = prep_path(dev, card, (peak_bw, peak_flops))
+
+    # ---- 15. result ----
     kernels = [{
         "name": "photo_reduce",
         "route": "cuda",
@@ -2955,6 +3311,18 @@ def main() -> None:
                                                  "bound_ms", "bound_by")},
         "backward": trained["backward"],
         "train_step_ms": trained["step_ms"],
+    }, {
+        "name": "photo_prep",
+        "route": "cuda",
+        "source": "sage_slam_tpu_torch/ops/csrc/photo_prep.cu",
+        "replaces": None,
+        "launches": pp.photo_prep_edges.launches,
+        "run_ba_launches_at_the_cell": prepped["run_ba_launches"],
+        "matched": True,
+        "max_rel_err": prepped["worst"],
+        "timing": "device time, cold L2 (a 96 MB scratch buffer read three times before each call)",
+        "bench_shape": prepped["times"]["bench"],
+        "cell_shape": prepped["times"]["cell"],
     }]
     if old_ms is not None:
         kernels[0]["earlier_ms"] = old_ms

@@ -1,9 +1,11 @@
 """Build the port's CUDA sources with nvcc at first use.
 
-Each source under ``ops/csrc/`` becomes a shared library with a plain C
-interface, loaded with ctypes. Libraries go to ``_build/`` beside this
-file (listed in .gitignore), named by the hash of the source and the
-flags, so an edited source is rebuilt and an unchanged one is not. A build
+Each library is built from its sources under ``ops/csrc/`` by one nvcc
+call, has a plain C interface and is loaded with ctypes: ``photometric``
+holds K1 (photo_reduce.cu) and the prep kernel (photo_prep.cu). Libraries
+go to ``_build/`` beside this file (listed in .gitignore), named by the
+hash of their sources and the flags, so an edited source is rebuilt and
+an unchanged one is not. A build
 writes to a temporary name and renames it into place, so two processes
 that build at once do not see a half-written file. A missing nvcc or a
 failed build raises.
@@ -22,7 +24,7 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent / "ops" / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = {"photo_reduce": "photo_reduce.cu"}
+SOURCES = {"photometric": ("photo_reduce.cu", "photo_prep.cu")}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -45,14 +47,14 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / SOURCES[name]).read_bytes()
+    src = b"".join((CSRC_DIR / f).read_bytes() for f in SOURCES[name])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
 def build(names=None) -> dict:
-    """Compile the named sources (default: all) that are not built yet,
-    one nvcc per source, all started together. Returns {name: (seconds,
+    """Compile the named libraries (default: all) that are not built yet,
+    one nvcc per library, all started together. Returns {name: (seconds,
     compiler output)} for the sources compiled by this call."""
     names = list(SOURCES) if names is None else list(names)
     todo = [n for n in names if not library_path(n).exists()]
@@ -65,7 +67,7 @@ def build(names=None) -> dict:
     for name in todo:
         out = library_path(name)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / SOURCES[name])]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC_DIR / f) for f in SOURCES[name])]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
@@ -87,7 +89,7 @@ def build(names=None) -> dict:
 
 @functools.cache
 def load_library(name: str) -> ctypes.CDLL:
-    """The built library of one source, building it first if needed."""
+    """One built library, building it first if needed."""
     path = library_path(name)
     if not path.exists():
         build([name])

@@ -211,7 +211,8 @@ def batch_from_numpy(batch, device=None) -> dict:
 def frame_from_numpy(fr, device=None):
     """The port's FrameData from the JAX package's FrameData fields (the
     per-frame tables included; the default-off mega tables are not
-    carried)."""
+    carried, nor the prep kernel's pixel rows, which the JAX package
+    lacks)."""
     from .mapping.keyframe_store import FrameData
 
     dev = resolve_device(device)

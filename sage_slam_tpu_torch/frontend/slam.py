@@ -528,6 +528,7 @@ class SlamSystem:
                 dense_fg=tuple(d[kf_id : kf_id + 1] for d in st.dense_fg),
                 dense_feat=tuple(d[kf_id : kf_id + 1] for d in st.dense_feat),
                 bias_at=st.bias_at[kf_id], jac_at=st.jac_at[kf_id],
+                pixel_fg=None if st.pixel_fg is None else st.pixel_fg[kf_id],
             )
         return FrameData(
             timestamp=st.timestamps[kf_id], bias_flat=st.row("bias_flat", kf_id),

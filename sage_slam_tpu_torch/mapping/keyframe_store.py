@@ -54,6 +54,7 @@ class FrameData:
     dense_feat: tuple = ()  # per dense level: [1, C, M_l]
     bias_at: Optional[torch.Tensor] = None  # [N]
     jac_at: Optional[torch.Tensor] = None  # [N, CS]
+    pixel_fg: Optional[torch.Tensor] = None  # [T, PW] (ops/photo_prep.pixel_table)
 
 
 class KeyframeStore:
@@ -85,6 +86,7 @@ class KeyframeStore:
         self.dense_feat: tuple = ()
         self.bias_at: Optional[torch.Tensor] = None  # [K, N]
         self.jac_at: Optional[torch.Tensor] = None  # [K, N, CS]
+        self.pixel_fg: Optional[torch.Tensor] = None  # [K, T, PW]
         # host-side metadata
         self.timestamps: List[float] = []
         self.reinitialize_count = np.zeros(k, np.int32)
@@ -106,12 +108,17 @@ class KeyframeStore:
         with self.lock:
             return self._add_locked(fr)
 
-    def write_tables(self, i: int, packed_fg, packed_feat, dense_fg, dense_feat, bias_at, jac_at):
+    def write_tables(self, i: int, packed_fg, packed_feat, dense_fg, dense_feat, bias_at, jac_at,
+                     pixel_fg=None):
         """Write one frame's sampling tables (K=1) into row i, allocating the
         store's tables from their shapes at the first write (call under
-        ``lock``)."""
+        ``lock``). The pixel rows come with every frame's tables or with
+        none (frames converted from the JAX package lack them)."""
         k = self.capacity
-        if self.packed_fg is None:
+        first = self.packed_fg is None
+        if not first and (pixel_fg is None) != (self.pixel_fg is None):
+            raise ValueError("keyframe store: pixel rows come with every frame's tables or with none")
+        if first:
             z = lambda shape, like: torch.zeros(shape, dtype=like.dtype, device=self.device)  # noqa: E731
             self.packed_fg = z((packed_fg.shape[0], k * packed_fg.shape[1]), packed_fg)
             self.packed_feat = z((packed_feat.shape[0], k * packed_feat.shape[1]), packed_feat)
@@ -119,6 +126,8 @@ class KeyframeStore:
             self.dense_feat = tuple(z((k, *d.shape[1:]), d) for d in dense_feat)
             self.bias_at = z((k, *bias_at.shape), bias_at)
             self.jac_at = z((k, *jac_at.shape), jac_at)
+            if pixel_fg is not None:
+                self.pixel_fg = z((k, *pixel_fg.shape), pixel_fg)
         tq = packed_fg.shape[1]
         tqf = packed_feat.shape[1]
         self.packed_fg[:, i * tq : (i + 1) * tq] = packed_fg
@@ -129,6 +138,8 @@ class KeyframeStore:
             big[i] = small[0]
         self.bias_at[i] = bias_at
         self.jac_at[i] = jac_at
+        if pixel_fg is not None:
+            self.pixel_fg[i] = pixel_fg
 
     def _add_locked(self, fr: FrameData) -> int:
         i = self.num_active
@@ -150,7 +161,7 @@ class KeyframeStore:
         self.avg_sq_bias[i] = fr.avg_sq_bias
         if fr.packed_fg is not None:
             self.write_tables(i, fr.packed_fg, fr.packed_feat, fr.dense_fg, fr.dense_feat,
-                              fr.bias_at, fr.jac_at)
+                              fr.bias_at, fr.jac_at, fr.pixel_fg)
         self.timestamps.append(fr.timestamp)
         self.links[i] = set()
         self.version[i] += 1
@@ -181,6 +192,7 @@ class KeyframeStore:
             src_feats=self.src_feats, avg_sq_bias=self.avg_sq_bias, mask_flat=mask_flat,
             packed_fg=self.packed_fg, packed_feat=self.packed_feat, bias_at=self.bias_at,
             jac_at=self.jac_at, dense_fg=self.dense_fg, dense_feat=self.dense_feat,
+            pixel_fg=self.pixel_fg,
         )
 
     def nbytes(self) -> int:
@@ -190,6 +202,7 @@ class KeyframeStore:
             self.homo, self.bias_flat, self.jac_flat, self.feat_pyr, self.src_feats,
             self.grad_pyr, self.feat_desc, self.avg_sq_bias, self.packed_fg,
             self.packed_feat, *self.dense_fg, *self.dense_feat, self.bias_at, self.jac_at,
+            self.pixel_fg,
         ]
         return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 

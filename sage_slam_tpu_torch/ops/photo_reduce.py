@@ -99,7 +99,7 @@ def _library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     from .._build import load_library
 
-    lib = load_library("photo_reduce")
+    lib = load_library("photometric")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.photo_reduce_launch.argtypes = [ptr] * 7 + [i32] * 6 + [
         ctypes.POINTER(ctypes.c_float), ptr,

@@ -401,7 +401,9 @@ def photo_prep(
 ):
     """Warp + sample + K-row construction for E photometric edges ->
     contiguous (fgs [E, L, 3C, N], f0_cm [E, L, C, N], gate [E, N],
-    kx [E, 13+CS, N], ky [E, 13+CS, N]), the reduce's inputs."""
+    kx [E, 13+CS, N], ky [E, 13+CS, N]), the reduce's inputs. The plain
+    version of ops/photo_prep's kernel, which ba.linearize runs in its
+    place on CUDA tensors without a graph."""
     cam0 = cam_pyr[0]
     depth0, jac_cm, homo_cm, rh, x1, pos, u1, v1 = _warp_project_cm(
         p0, p1, code0, scale0, kf0, shared, cam0, eps

@@ -43,6 +43,7 @@ _KF_AXIS = {
     "avg_sq_bias": 0,
     "bias_at": 0,
     "jac_at": 0,
+    "pixel_fg": 0,
 }
 
 

@@ -43,7 +43,7 @@ def main():
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     print(f"card: {card}", flush=True)
-    for name, (secs, log) in _build.build(["photo_reduce"]).items():
+    for name, (secs, log) in _build.build(["photometric"]).items():
         print(f"build {name}: {secs:.2f} s")
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:

@@ -6,9 +6,10 @@ corrected and scatter-added into one dense block Hessian over the window;
 per-keyframe priors are added; the damped GN loop (solver.graph.lm_loop)
 runs the optimization.
 
-The photometric reduce of every linearization is ops/photo_reduce (the
-CUDA kernel when the problem lies on the card). Reprojection edges (off by
-default, MapperConfig.use_reprojection) enter as a third factor type.
+The photometric prep and reduce of every linearization are ops/photo_prep
+and ops/photo_reduce (two CUDA kernels when the problem lies on the card).
+Reprojection edges (off by default, MapperConfig.use_reprojection) enter
+as a third factor type.
 ``compact_problem_keyframes`` gathers the window-incident keyframes of a
 full-capacity problem for the mapper's compact step.
 """
@@ -23,7 +24,7 @@ from ..config import PHOTO_REDUCE_NAMES
 from ..device import set_f32_precision
 from ..geometry.camera import CameraPyramid
 from ..geometry.se3 import SE3
-from ..ops import geometric, photometric, priors
+from ..ops import geometric, photo_prep, photometric, priors
 from ..ops import reprojection as rp_ops
 from ..ops.photo_reduce import photo_reduce
 from ..utils import timing
@@ -54,6 +55,9 @@ class WindowData(NamedTuple):
     # levels 0+1 in one gather row (photometric.USE_MEGA_TABLES, else None)
     mega_fg: torch.Tensor | None = None  # [4*(3C+1)+9*3C+2, K*R]
     mega_feat: torch.Tensor | None = None  # [4*(C+1)+9*C+2, K*R]
+    # the prep kernel's point-major sampling rows (photo_prep.pixel_table),
+    # kept by the keyframe store; filled by prepare_problem where missing
+    pixel_fg: torch.Tensor | None = None  # [K, T, PW]
 
 
 class EdgeTable(NamedTuple):
@@ -110,10 +114,17 @@ class BAProblem(NamedTuple):
 
 def prepare_problem(problem: BAProblem, cam_pyr: CameraPyramid) -> BAProblem:
     """Precompute the window's gather tables and the source-pixel decode
-    tables (idempotent)."""
+    tables, and the prep kernel's pixel table, where the window lacks them
+    (idempotent)."""
     w = problem.window
-    if w.packed_fg is not None:
-        return problem
+    if w.packed_fg is None:
+        w = _gather_tables(w, cam_pyr)
+    if w.pixel_fg is None:
+        w = w._replace(pixel_fg=photo_prep.pixel_table(w.feat_pyr, w.grad_pyr, w.mask_flat, cam_pyr))
+    return problem if w is problem.window else problem._replace(window=w)
+
+
+def _gather_tables(w: WindowData, cam_pyr: CameraPyramid) -> WindowData:
     c = w.feat_pyr.shape[0]
     packed_fg, packed_feat, dense_fg, dense_feat, mega_fg, mega_feat = (
         photometric.build_photo_tables(
@@ -122,17 +133,15 @@ def prepare_problem(problem: BAProblem, cam_pyr: CameraPyramid) -> BAProblem:
     )
     loc = w.loc1d.long()
     kf = torch.arange(loc.shape[0], device=loc.device)[:, None]
-    return problem._replace(
-        window=w._replace(
-            packed_fg=packed_fg,
-            packed_feat=packed_feat,
-            bias_at=w.bias_flat[kf, loc],  # [K, N]
-            jac_at=w.jac_flat[kf, loc],  # [K, N, CS]
-            dense_fg=dense_fg,
-            dense_feat=dense_feat,
-            mega_fg=mega_fg,
-            mega_feat=mega_feat,
-        )
+    return w._replace(
+        packed_fg=packed_fg,
+        packed_feat=packed_feat,
+        bias_at=w.bias_flat[kf, loc],  # [K, N]
+        jac_at=w.jac_flat[kf, loc],  # [K, N, CS]
+        dense_fg=dense_fg,
+        dense_feat=dense_feat,
+        mega_fg=mega_fg,
+        mega_feat=mega_feat,
     )
 
 
@@ -183,6 +192,7 @@ def _select_keyframes(problem: BAProblem, sel, pad_valid) -> BAProblem:
         dense_feat=tuple(d[sel] for d in w.dense_feat),
         mega_fg=None,
         mega_feat=None,
+        pixel_fg=None if w.pixel_fg is None else w.pixel_fg[sel],
     )
     pr = problem.priors
     gate = (lambda x: x[sel]) if pad_valid is None else (lambda x: x[sel] * pad_valid)
@@ -226,6 +236,29 @@ def _photo_inputs(window: WindowData, e: EdgeTable):
         mega_feat=window.mega_feat,
     )
     return kf0, fr1, shared
+
+
+def _photo_prep(variables: Variables, window: WindowData, e: EdgeTable, cam_pyr, eps, soft):
+    """K1's inputs for the photometric edges: the prep kernel on CUDA
+    tensors (ops/photo_prep), the plain chain (photometric.photo_prep) on
+    CPU tensors."""
+    pose = variables.pose
+    if photo_prep.uses_kernel(
+        variables.scale, pose.rot, pose.trans, variables.code, window.homo, window.bias_at,
+        window.jac_at, window.bias_flat, window.jac_flat, window.src_feats, window.feat_pyr,
+        window.grad_pyr, window.pixel_fg,
+    ):
+        out = photo_prep.photo_prep_edges(
+            pose.rot, pose.trans, variables.code, variables.scale, e.i0, e.i1, window, cam_pyr,
+            eps, soft,
+        )
+        timing.count("photo.prep_kernel", 1)
+        return out
+    kf0, fr1, shared = _photo_inputs(window, e)
+    return photometric.photo_prep(
+        _edge_pose(variables, e.i0), _edge_pose(variables, e.i1), variables.code[e.i0],
+        variables.scale[e.i0], kf0, fr1, shared, cam_pyr, eps, soft=soft,
+    )
 
 
 def _geo_inputs(window: WindowData, e: EdgeTable, variables: Variables, cam, which):
@@ -312,11 +345,8 @@ def linearize(
         pe = problem.photo_edges
         if pe.i0.shape[0] > 0:
             timing.count("edges", pe.i0.shape[0])
-            kf0, fr1, shared = _photo_inputs(problem.window, pe)
-            fgs, f0cm, gate, kx, ky = photometric.photo_prep(
-                _edge_pose(variables, pe.i0), _edge_pose(variables, pe.i1),
-                variables.code[pe.i0], variables.scale[pe.i0], kf0, fr1, shared,
-                cam_pyr, cfg.dpt_eps, soft=soft,
+            fgs, f0cm, gate, kx, ky = _photo_prep(
+                variables, problem.window, pe, cam_pyr, cfg.dpt_eps, soft
             )
             ata, atb, err_t, n_inl = photo_reduce(
                 fgs, f0cm, gate, kx, ky,

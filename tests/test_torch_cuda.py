@@ -227,3 +227,79 @@ def test_kernel_without_a_graph_skips_the_function(cuda):
     assert all(o.grad_fn is None for o in out)
     out = tred.photo_reduce(*ins, WEIGHTS, ratios)
     assert all(o.grad_fn is not None for o in out[:3])
+
+
+def _double(tree):
+    """A (nested) NamedTuple or tuple with its float32 tensors in float64."""
+    if isinstance(tree, torch.Tensor):
+        return tree.double() if tree.dtype == torch.float32 else tree
+    if isinstance(tree, tuple):
+        items = [_double(x) for x in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return tree
+
+
+def _bench_prep(dev, soft, flat=False):
+    """The prep kernel's and the plain chain's outputs on the bench point's
+    photometric edges (drawn codes and scales; ``flat`` drops the prepared
+    decode tables), the plain chain's in float64, and the pyramid."""
+    from sage_slam_tpu_torch import synthetic
+    from sage_slam_tpu_torch.config import MapperConfig
+    from sage_slam_tpu_torch.ops import photometric
+    from sage_slam_tpu_torch.solver import ba
+    from sage_slam_tpu_torch.solver.graph import Variables
+
+    v, p, pyr = synthetic.bench_problem(device=dev)
+    p = ba.prepare_problem(p, pyr)
+    gen = torch.Generator().manual_seed(7)
+    v = Variables(v.pose, 0.1 * torch.randn(v.code.shape, generator=gen).to(dev),
+                  1.0 + 0.1 * torch.randn(v.scale.shape, generator=gen).to(dev))
+    w = p.window._replace(bias_at=None, jac_at=None) if flat else p.window
+    pe, eps = p.photo_edges, MapperConfig().dpt_eps
+    got = ba._photo_prep(v, w, pe, pyr, eps, soft)
+    plain = lambda v, w: photometric.photo_prep(  # noqa: E731
+        ba._edge_pose(v, pe.i0), ba._edge_pose(v, pe.i1), v.code[pe.i0], v.scale[pe.i0],
+        *ba._photo_inputs(w, pe), pyr, eps, soft=soft)
+    return got, plain(v, w), plain(_double(v), _double(w)), pyr
+
+
+@pytest.mark.parametrize("soft,flat", [(False, False), (True, False), (True, True)],
+                         ids=["hard-gate", "soft-gate", "bias_flat-loc"])
+def test_prep_kernel_matches_plain_chain(cuda, soft, flat):
+    """The prep kernel (ops/photo_prep) against photometric.photo_prep at
+    the bench point: one launch; the source features bit-equal; samples,
+    gate and K-rows within float32 roundoff of coordinates summed in
+    another order, each K-row (per edge) no further from the float64 chain
+    than 8x the plain float32 chain or 1e-7 of the row's largest value
+    (chip_smoke.py's phase 14 holds every shape and variant element by
+    element); K1 on each within phase 4's linearize tolerance."""
+    from sage_slam_tpu_torch.config import MapperConfig
+    from sage_slam_tpu_torch.ops import photo_prep, photometric
+
+    before = photo_prep.photo_prep_edges.launches
+    got, ref, exact, pyr = _bench_prep(cuda, soft, flat)
+    assert photo_prep.photo_prep_edges.launches == before + 1
+    assert torch.equal(got[1], ref[1])
+    for name, a, b, tol in (("fgs", got[0], ref[0], 2e-4), ("gate", got[2], ref[2], 1e-4)):
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max()), name
+    for name, i in (("kx", 3), ("ky", 4)):
+        a, b, t = got[i], ref[i], exact[i]
+        assert torch.equal(torch.isnan(a), torch.isnan(b)), name
+        t = t.nan_to_num(0.0)
+        row_max = t.abs().amax(dim=2)  # [E, dim]: each K-row against its own scale
+        err_k = (a.double().nan_to_num(0.0) - t).abs().amax(dim=2)
+        err_p = (b.double().nan_to_num(0.0) - t).abs().amax(dim=2)
+        assert bool((err_k <= 8.0 * torch.maximum(err_p, 1e-7 * row_max)).all()), name
+    weights, ratios = tuple(MapperConfig().photo_factor_weights), photometric.level_ratios(pyr)
+    k1 = [tuple(x.double().cpu().numpy() for x in tred.photo_reduce(*p, weights, ratios)) for p in (got, ref)]
+    scale = float(np.abs(k1[1][0]).max())
+    for a, b in zip(k1[0][:2], k1[1][:2]):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5 * scale)
+    np.testing.assert_allclose(k1[0][2], k1[1][2], rtol=1e-4)
+
+
+def test_prep_kernel_is_deterministic(cuda):
+    first = [x.clone() for x in _bench_prep(cuda, True)[0]]
+    second = _bench_prep(cuda, True)[0]
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)  # no atomics: every output written once by one thread

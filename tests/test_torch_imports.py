@@ -99,7 +99,7 @@ def test_cuda_build_directory_is_ignored():
     lines = {ln.strip().rstrip("/") for ln in (ROOT / ".gitignore").read_text().splitlines()}
     assert rel in lines, f"{rel}/ is not listed in .gitignore"
     assert _build.CSRC_DIR.is_dir() and all(
-        (_build.CSRC_DIR / src).is_file() for src in _build.SOURCES.values()
+        (_build.CSRC_DIR / src).is_file() for srcs in _build.SOURCES.values() for src in srcs
     )
 
 

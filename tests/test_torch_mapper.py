@@ -307,6 +307,40 @@ def test_merge_keeps_rows_written_during_the_solve():
     np.testing.assert_allclose(tm.store.variables.code[1:3].numpy(), jv.code[1:3], atol=1e-6)
 
 
+def test_store_keeps_each_keyframes_pixel_rows():
+    """The prep kernel's pixel rows are built once a keyframe
+    (Mapper.frame_tables), kept by the store and gathered by the compact
+    step: the window the solve gets holds what photo_prep.pixel_table
+    builds from its own pyramids (zeros in its padding, as the store's
+    other tables), and prepare_problem keeps it. A store
+    that holds pixel rows refuses a frame without them (one converted from
+    the JAX package)."""
+    from sage_slam_tpu_torch.ops import photo_prep
+    from sage_slam_tpu_torch.solver import ba as tba
+
+    pair = Pair()
+    tm, scene = pair.tm, pair.scene
+    tm.init_one_frame(0.0, scene.images[0])
+    for f in range(1, 4):
+        pose = tse3.SE3(torch.from_numpy(scene.rot[f]), torch.from_numpy(scene.trans[f]))
+        tm.enqueue_keyframe(tm.build_frame(0.1 * f, scene.images[f], pose=pose), [f - 1])
+    st = tm.store
+    n = st.num_active
+    want = photo_prep.pixel_table(st.feat_pyr[:, :n], st.grad_pyr[:, :, :n], tm.mask_flat, tm.cam_pyr)
+    assert n == 4 and torch.equal(st.pixel_fg[:n], want)
+    with st.lock:
+        snap_n, _, snap_vars = st.snapshot()
+        problem = tm._compact_step_inputs(snap_n, snap_vars, True)[0]
+    w = problem.window  # the n keyframes, then rows the store never wrote (all zero)
+    built = photo_prep.pixel_table(w.feat_pyr, w.grad_pyr, w.mask_flat, tm.cam_pyr)
+    assert w.pixel_fg.shape[0] > n and torch.equal(w.pixel_fg[:n], built[:n])
+    assert not w.pixel_fg[n:].any() and not w.feat_pyr[:, n:].any()
+    assert tba.prepare_problem(problem, tm.cam_pyr).window.pixel_fg is w.pixel_fg
+    with pytest.raises(ValueError, match="pixel rows"):
+        st.add(convert.frame_from_numpy(pair.jax_frame(4), device="cpu"))
+    assert st.num_active == n
+
+
 def test_windowed_problem_and_full_problem_agree():
     """build_problem(window_lo) keeps only window-incident edges, and its
     solve equals the all-edges solve (frozen-frozen edges only add a

@@ -15,6 +15,9 @@ from sage_slam_tpu.ops.pallas_kernels import photo_reduce_pallas
 from sage_slam_tpu.solver import ba as jba
 from sage_slam_tpu.solver.graph import Variables as JaxVariables
 from sage_slam_tpu_torch import convert
+from sage_slam_tpu_torch.config import MapperConfig
+from sage_slam_tpu_torch.geometry import interp
+from sage_slam_tpu_torch.ops import photo_prep as tprep
 from sage_slam_tpu_torch.ops import photo_reduce as tred
 from sage_slam_tpu_torch.ops import photometric as tph
 from sage_slam_tpu_torch.solver import ba as tba
@@ -211,3 +214,195 @@ def test_photo_tables_and_source_features_match_jax(graft_case):
     src_j = jph.sample_source_features(w.feat_pyr[:, 0], w.loc1d[0], pyr)
     src_t = tph.sample_source_features(tw.feat_pyr[:, 0], tw.loc1d[0], tpyr)
     np.testing.assert_allclose(src_t.numpy(), np.asarray(src_j), rtol=1e-6, atol=1e-6)
+
+
+# ---- the prep kernel (ops/photo_prep, csrc/photo_prep.cu): what runs here ----
+
+
+def _pixel_bilinear(pixel, frame, x, y, width, height, offset, col, ncols):
+    """The prep kernel's gather written in torch: the zero-padded bilinear
+    of columns [col, col + ncols) of pixel_table rows [K, T, PW] at level
+    coordinates x, y [E, N] of frames ``frame`` [E] -> [E, ncols, N]; the
+    four taps of interp._quad_anchor, each read only inside the image,
+    combined in the kernel's order."""
+    x0, y0 = torch.floor(x), torch.floor(y)
+    wx0, wy0 = (x0 + 1.0) - x, (y0 + 1.0) - y
+    wx1, wy1 = 1.0 - wx0, 1.0 - wy0
+    xi, yi = interp._int_coord(x0, width), interp._int_coord(y0, height)
+    out = None
+    for dx, dy, wx, wy in ((0, 0, wx0, wy0), (1, 0, wx1, wy0), (0, 1, wx0, wy1), (1, 1, wx1, wy1)):
+        xx, yy = xi + dx, yi + dy
+        inx, iny = (xx >= 0) & (xx < width), (yy >= 0) & (yy < height)
+        w = wx * wy * inx.to(x.dtype) * iny.to(x.dtype)
+        idx = offset + yy.clamp(0, height - 1) * width + xx.clamp(0, width - 1)
+        rows = pixel[frame[:, None], idx][..., col : col + ncols]  # [E, N, ncols]
+        rows = torch.where((inx & iny)[..., None], rows, torch.zeros_like(rows))
+        term = rows.movedim(-1, -2) * w[:, None]
+        out = term if out is None else out + term
+    return out
+
+
+def _pixel_nearest(pixel, frame, x, y, width, height, col):
+    """The kernel's hard gate: the mask column at the nearest pixel (half
+    up), zero outside the image."""
+    x0, y0 = torch.floor(x), torch.floor(y)
+    xr = interp._int_coord(x0, width) + ((x - x0) >= 0.5).long()
+    yr = interp._int_coord(y0, height) + ((y - y0) >= 0.5).long()
+    inb = (xr >= 0) & (xr < width) & (yr >= 0) & (yr < height)
+    idx = yr.clamp(0, height - 1) * width + xr.clamp(0, width - 1)
+    return torch.where(inb, pixel[frame[:, None], idx][..., col], torch.zeros_like(x))
+
+
+def _sample_coords(cam0, e, n, seed):
+    """Full-resolution target coordinates [E, N]: inside and around the
+    image, far outside it, and NaN."""
+    g = torch.Generator().manual_seed(seed)
+    u = torch.rand((e, n), generator=g) * (cam0.width + 8) - 4
+    v = torch.rand((e, n), generator=g) * (cam0.height + 8) - 4
+    u[:, :3] = torch.tensor([float("nan"), 1e6, -1e6])
+    v[:, 3:6] = torch.tensor([float("nan"), -1e6, 1e6])
+    u[:, 6], v[:, 6] = -0.5, cam0.height - 0.5  # on the half-pixel border
+    return u, v
+
+
+@pytest.mark.parametrize("level", [0, 1, 2, 3])
+def test_pixel_table_bilinear_equals_quad_dense_and_mega(graft_case, level, monkeypatch):
+    """The identity the prep kernel rests on: one zero-padded bilinear
+    gather from pixel_table's rows gives, bit for bit, the quad gather from
+    packed_fg at every level (the gate's mask column too, soft and hard),
+    and within float32 roundoff the hat-weight matmul
+    (interp.dense_bilinear_cm) of the coarse levels and the mega table's
+    levels 0 and 1, including coordinates outside the image and NaN."""
+    *_, tp, tpyr = graft_case
+    w = tp.window
+    c = w.feat_pyr.shape[0]
+    monkeypatch.setattr(tph, "USE_MEGA_TABLES", True)
+    packed_fg, _, dense_fg, _, mega_fg, _ = tph.build_photo_tables(
+        w.feat_pyr.reshape(c, -1), w.grad_pyr.reshape(2, c, -1), w.mask_flat, tpyr)
+    pixel = tprep.pixel_table(w.feat_pyr, w.grad_pyr, w.mask_flat, tpyr)
+    assert pixel.shape == (4, tpyr.total_pixels, tprep.row_width(c)) and pixel.shape[-1] % 4 == 0
+    cam0, cam = tpyr[0], tpyr[level]
+    e, n = 6, 400
+    frame = torch.tensor([0, 1, 2, 3, 3, 1])
+    u, v = _sample_coords(cam0, e, n, seed=level)
+    ul, vl = interp.level_coords(u, v, cam.fx / cam0.fx, cam.fy / cam0.fy)
+    off = tpyr.level_offsets[level]
+    got = _pixel_bilinear(pixel, frame, ul, vl, cam.width, cam.height, off, 0, 3 * c)
+    qoff = frame * tpyr.total_quad_rows + tpyr.quad_level_offsets[level]
+    rowv, wts = interp.quad_gather_cols(packed_fg, ul, vl, cam.width, cam.height, qoff)
+    np.testing.assert_array_equal(got.numpy(), interp.combine_quad_cm(rowv, wts, 3 * c, 3 * c + 1).numpy())
+    assert torch.isnan(got).any() and (got == 0).all(dim=1).any()  # NaN and outside points present
+    dense = tph.dense_levels(tpyr)
+    if level in dense:
+        hat = interp.dense_bilinear_cm(dense_fg[dense.index(level)][frame], ul, vl, cam.width, cam.height)
+        np.testing.assert_allclose(got.numpy(), hat.numpy(), rtol=1e-5,
+                                   atol=1e-6 * float(hat.nan_to_num().abs().max()))
+    r = (cam0.width + 1) * (cam0.height + 1)
+    ul0, vl0 = interp.level_coords(u, v, 1.0, 1.0)
+    mega_rows, mwts, _, _ = interp.mega_gather(mega_fg, ul0, vl0, cam0.width, cam0.height, frame * r)
+    if level == 0:
+        mega = interp.combine_quad_cm(mega_rows, mwts, 3 * c, 3 * c + 1)
+        soft = _pixel_bilinear(pixel, frame, ul, vl, cam.width, cam.height, 0, 3 * c, 1)[:, 0]
+        np.testing.assert_array_equal(
+            soft.numpy(), interp.quad_bilinear_select_cm(rowv, wts, 3 * c, 3 * c + 1).numpy())
+        hard = _pixel_nearest(pixel, frame, ul, vl, cam.width, cam.height, 3 * c)
+        np.testing.assert_array_equal(hard.numpy(), interp.quad_nearest_select_cm(
+            rowv, ul, vl, cam.width, cam.height, 3 * c, 3 * c + 1).numpy())
+    elif level == 1:
+        mega = interp.mega_level1(mega_rows, ul, vl, cam.width, cam.height, 3 * c + 1, 3 * c)
+    else:
+        return
+    np.testing.assert_allclose(got.numpy(), mega.numpy(), rtol=1e-6, atol=1e-6)
+
+
+def test_photo_prep_on_cpu_takes_the_plain_path(graft_case):
+    """CPU tensors take photometric.photo_prep: ba's dispatch returns its
+    outputs bit for bit and launches nothing."""
+    *_, tv, tp, tpyr = graft_case
+    before = tprep.photo_prep_edges.launches
+    for soft in (False, True):
+        got = tba._photo_prep(tv, tp.window, tp.photo_edges, tpyr, 1e-6, soft)
+        for a, b in zip(got, _torch_prep(tv, tp, tpyr, soft)):
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+    prepared = tba.prepare_problem(tp, tpyr)
+    assert prepared.window.pixel_fg.shape == (4, tpyr.total_pixels, tprep.row_width(16))
+    tba.linearize(tv, prepared, tpyr, MapperConfig())
+    assert tprep.photo_prep_edges.launches == before
+
+
+@pytest.mark.parametrize("graph", ["graph", "none", "none-under-no_grad", "graph-under-no_grad"])
+def test_photo_prep_dispatch_on_the_card(graft_case, graph, monkeypatch):
+    """With the device test answering "on the card", a prepared window's
+    inputs reach the kernel's launch, also under no_grad, where a leaf that
+    requires grad builds no graph; an input that carries a graph raises
+    (the kernel has no backward) and launches nothing."""
+    *_, tv, tp, tpyr = graft_case
+    calls = []
+    monkeypatch.setattr(tprep, "_on_card", lambda t: True)
+    monkeypatch.setattr(tprep, "_launch", lambda *a: calls.append(a) or "kernel")
+    code = tv.code.clone().requires_grad_(graph.startswith("graph"))
+    v = tv._replace(code=code)
+    window = tba.prepare_problem(tp, tpyr).window
+    run = lambda: tba._photo_prep(v, window, tp.photo_edges, tpyr, 1e-6, False)  # noqa: E731
+    if graph == "graph":
+        with pytest.raises(ValueError, match="autograd graph"):
+            run()
+        assert calls == []
+        return
+    if graph.endswith("under-no_grad"):
+        with torch.no_grad():
+            out = run()
+    else:
+        out = run()
+    assert out == "kernel" and len(calls) == 1 and calls[0][6] is window
+
+
+def _check_case(case, tv, tp, tpyr):
+    """(rot, trans, code, scale, i0, i1, window) with one defect."""
+    w = tp.window
+    pixel = w.pixel_fg
+    args = dict(rot=tv.pose.rot, trans=tv.pose.trans, code=tv.code, scale=tv.scale,
+                i0=tp.photo_edges.i0, i1=tp.photo_edges.i1, window=w)
+    k, n = w.loc1d.shape
+    if case == "dim-over-29":
+        args["code"] = torch.zeros((k, 17))
+    elif case == "levels-over-max":
+        args["window"] = w._replace(src_feats=torch.zeros((k, tprep.MAX_LEVELS + 1, n, 16)))
+    elif case == "float64-homo":
+        args["window"] = w._replace(homo=w.homo.double())
+    elif case == "int32-edges":
+        args["i0"] = args["i0"].int()
+    elif case == "non-contiguous-table":
+        args["window"] = w._replace(pixel_fg=pixel.transpose(0, 1).contiguous().transpose(0, 1))
+    elif case == "misaligned-table":
+        flat = torch.zeros(pixel.numel() + 1)
+        args["window"] = w._replace(pixel_fg=flat[1:].view(pixel.shape))
+    elif case == "table-of-another-pyramid":
+        args["window"] = w._replace(pixel_fg=pixel[:, :-4])
+    elif case == "no-pixel-table":
+        args["window"] = w._replace(pixel_fg=None)
+    elif case == "channels-not-multiple-of-4":
+        args["window"] = w._replace(src_feats=w.src_feats[..., :6].contiguous())
+    elif case == "bias-without-jac":
+        args["window"] = w._replace(jac_at=None)
+    return args
+
+
+@pytest.mark.parametrize("case,error", [
+    ("dim-over-29", ValueError), ("levels-over-max", ValueError), ("float64-homo", TypeError),
+    ("int32-edges", TypeError), ("non-contiguous-table", ValueError),
+    ("misaligned-table", ValueError), ("table-of-another-pyramid", ValueError),
+    ("channels-not-multiple-of-4", ValueError), ("bias-without-jac", ValueError),
+    ("no-pixel-table", ValueError),
+])
+def test_photo_prep_kernel_rejects_what_it_cannot_take(graft_case, case, error):
+    """The kernel wrapper's checks, which run before any launch (so here,
+    without a card): the limits it shares with K1 (dim <= 29, L <=
+    MAX_LEVELS), dtypes, contiguity, 16-byte alignment, shapes and a
+    window without its pixel table."""
+    *_, tv, tp, tpyr = graft_case
+    tp = tba.prepare_problem(tp, tpyr)
+    args = _check_case("none", tv, tp, tpyr)
+    assert tprep.check_inputs(**args, cam_pyr=tpyr) == (6, 4, 512, 16, 16, 4)
+    with pytest.raises(error):
+        tprep.check_inputs(**_check_case(case, tv, tp, tpyr), cam_pyr=tpyr)

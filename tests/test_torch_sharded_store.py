@@ -126,8 +126,10 @@ def test_sharded_window_memory_scales_down(runs, n):
                                                           device="cpu"), convert.camera_pyramid_from_numpy(pyr)).window
     tacct = tss.store_bytes_per_device(twin, 8)
     jacct = jss.store_bytes_per_device(jwin, 8)
-    # the port's ids are int64 where JAX's are int32: only loc1d's bytes differ
-    assert tacct["replicated_bytes"] - jacct["replicated_bytes"] == twin.loc1d.numel() * 4
+    # the port's ids are int64 where JAX's are int32, and the port's window
+    # carries the prep kernel's pixel rows, which JAX's lacks
+    extra = twin.loc1d.numel() * 4 + twin.pixel_fg.numel() * 4
+    assert tacct["replicated_bytes"] - jacct["replicated_bytes"] == extra
     assert tacct["sharded_bytes_per_device"] <= tacct["replicated_bytes"] // 7
 
 
