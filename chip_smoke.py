@@ -11,7 +11,8 @@ Phases, each of which exits non-zero on failure:
 3. kernels vs plain: each kernel's wrapper on the card against its plain
    PyTorch version on the same inputs, at the shapes the window-BA path
    gives it and at the edges of the kernel's design (N % 4 != 0, N under
-   one tile, one edge, dim 17), binary and soft gates; two launches on the
+   one tile, one edge, dim 17, and dim 45 and 30 for the 48-wide
+   instantiation), binary and soft gates; two launches on the
    same inputs must be bit-identical;
 4. main path: the window-BA step (run_ba, 10 LM iterations) at the bench
    point (K=8, 64x80, CS=FS=16, L=4, N=3072, 24+24 ring edges); each
@@ -235,7 +236,13 @@ Phases, each of which exits non-zero on failure:
    run_ba on the cell's problem makes one prep launch, one
    photo.prep_kernel count and one K1 launch an LM iteration. Times the
    kernel (cold L2, warm beside) against its bound (prep_bound) and the
-   plain chain, at the bench point and the cell's shape;
+   plain chain, at the bench point and the cell's shape. The same again
+   at CS = 32 (the 32-code prep and the 48-wide K1: the bench point, a
+   mapper window and the cell's problem at CS = 32, E=24, 48 and 372),
+   where run_ba's lin.photo spans must count photo.k1_pad 48 and
+   photo.prep_cs 32 (32 and 16 at CS = 16); K1 is held to its plain
+   version and timed (cold and warm, against reduce_bound) on the cell's
+   prep at both widths;
 15. a JSON line listing every kernel, then the card line, then the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -2876,13 +2883,15 @@ def prep_variants(variables, window, seed: int):
             ("behind, outside, NaN", faulty, window)]
 
 
-def cell_problem(dev, keyframes: int = 64, connections: int = 3):
-    """The benchmark cell's problem (refine_map64.full_graph_lm): a map of
-    ``keyframes`` keyframes built through the mapper at SlamConfig()'s
-    widths (random networks, synthetic.mapper_scene), each with
-    photometric and geometric factors both ways to its ``connections``
-    predecessors, and the compact problem mapping_step(full=True) solves
-    -> (variables, prepared problem, update mask, pyramid, config)."""
+def cell_problem(dev, keyframes: int = 64, connections: int = 3, code_size: int = 16):
+    """The benchmark cell's problem (refine_map64.full_graph_lm, or
+    refine_map64_cs32's at code_size=32): a map of ``keyframes`` keyframes
+    built through the mapper at SlamConfig()'s widths with a
+    ``code_size``-dim code (random networks, synthetic.mapper_scene), each
+    with photometric and geometric factors both ways to its
+    ``connections`` predecessors, and the compact problem
+    mapping_step(full=True) solves -> (variables, prepared problem, update
+    mask, pyramid, config)."""
     from sage_slam_tpu_torch import synthetic
     from sage_slam_tpu_torch.config import SlamConfig
     from sage_slam_tpu_torch.geometry.camera import CameraPyramid
@@ -2891,7 +2900,7 @@ def cell_problem(dev, keyframes: int = 64, connections: int = 3):
     from sage_slam_tpu_torch.models import depth_network, feature_network
     from sage_slam_tpu_torch.solver import ba
 
-    cfg = SlamConfig()
+    cfg = SlamConfig(code_size=code_size)
     scene = synthetic.mapper_scene(keyframes, seed=0, height=cfg.net_input_size[0],
                                    width=cfg.net_input_size[1])
     pyr = CameraPyramid.build(scene.camera, cfg.pyramid_levels)
@@ -2948,18 +2957,64 @@ def prep_times(variables, problem, pyr, cfg, card: str, peak_bw: float, label: s
     return t
 
 
-def prep_path(dev, card: str, peaks) -> dict:
-    """Phase 14: the prep kernel against the plain chain at the shapes the
-    port gives it, each with three variants and both gates; one prep launch
-    an LM iteration of run_ba on the cell's problem; times at the bench
-    point and the cell's shape."""
-    from sage_slam_tpu_torch import synthetic
-    from sage_slam_tpu_torch.bench import scaling
-    from sage_slam_tpu_torch.config import MapperConfig
+def run_ba_counts(variables, problem, pyr, cfg, mask, label: str) -> dict:
+    """run_ba on a problem with utils/timing recording: one prep launch,
+    one photo.prep_kernel count and one K1 launch an LM iteration, and in
+    every lin.photo span the instantiations' widths (photo.k1_pad,
+    photo.prep_cs) of the problem's code size -> the widths."""
     from sage_slam_tpu_torch.ops import photo_prep as pp
     from sage_slam_tpu_torch.ops import photo_reduce as pr
     from sage_slam_tpu_torch.solver import ba
     from sage_slam_tpu_torch.utils import timing
+
+    cs = variables.code_size
+    want = dict(k1_pad=pr.pad_for(13 + cs), prep_cs=pp.code_width(cs))
+    timing.reset()
+    timing.enable(True)
+    launches, k1 = pp.photo_prep_edges.launches, pr.photo_reduce.launches
+    _, err, iters, _ = ba.run_ba(variables, problem, pyr, cfg, mask, cfg.max_gn_iters)
+    timing.enable(False)
+    launches, k1 = pp.photo_prep_edges.launches - launches, pr.photo_reduce.launches - k1
+    spans = [r for r in timing.records() if r.name == "lin.photo"]
+    timing.reset()
+    counted = sum(r.counts.get("photo.prep_kernel", 0) for r in spans)
+    widths = {(r.counts.get("photo.k1_pad"), r.counts.get("photo.prep_cs")) for r in spans}
+    say(f"prep kernel on {label} (CS={cs}): run_ba {iters} LM iterations, error {float(err):.6g}; prep "
+        f"launches {launches}, photo.prep_kernel counts {counted}, K1 launches {k1}; (photo.k1_pad, "
+        f"photo.prep_cs) in its {len(spans)} lin.photo spans: {sorted(widths)}")
+    if not (launches == counted == k1 == iters == len(spans)) or not bool(torch.isfinite(err)):
+        fail(f"run_ba on {label}: {launches} prep launches, {counted} counted, {k1} K1 launches "
+             f"for {iters} LM iterations (error {float(err)})")
+    if widths != {(want["k1_pad"], want["prep_cs"])}:
+        fail(f"run_ba on {label}: lin.photo counted (photo.k1_pad, photo.prep_cs) {sorted(widths)}, "
+             f"expected {(want['k1_pad'], want['prep_cs'])}")
+    return dict(launches=launches, **want)
+
+
+def cell_k1(variables, problem, pyr, cfg, card: str, peaks, label: str) -> dict:
+    """K1 on the kernel's prep of a cell's problem: held to its plain
+    version and timed against its bound (k1_hold)."""
+    from sage_slam_tpu_torch.ops import photometric
+    from sage_slam_tpu_torch.solver import ba
+
+    prep = ba._photo_prep(variables, problem.window, problem.photo_edges, pyr, cfg.dpt_eps,
+                          cfg.soft_inlier_gate)
+    weights, ratios = tuple(cfg.photo_factor_weights), photometric.level_ratios(pyr)
+    return k1_hold(prep, weights, ratios, card, peaks, label)["shape"]
+
+
+def prep_path(dev, card: str, peaks) -> dict:
+    """Phase 14: the prep kernel against the plain chain at the shapes the
+    port gives it, each with three variants and both gates, at CS = 16 and
+    CS = 32; one prep launch an LM iteration of run_ba on the cells'
+    problems, with the instantiations' widths counted; times of the prep
+    kernel at the bench point and the cells' shapes, and of K1 on the
+    cells' prep at both widths."""
+    from sage_slam_tpu_torch import synthetic
+    from sage_slam_tpu_torch.bench import scaling
+    from sage_slam_tpu_torch.config import MapperConfig
+    from sage_slam_tpu_torch.ops import photo_prep as pp
+    from sage_slam_tpu_torch.solver import ba
 
     t0 = time.perf_counter()
     peak_bw = peaks[0]
@@ -2974,8 +3029,14 @@ def prep_path(dev, card: str, peaks) -> dict:
     shapes.append((f"growth_curve's full step at {g.keyframes} keyframes", g.variables,
                    ba.prepare_problem(g.problems["full"], g.cam_pyr), g.cam_pyr, mcfg))
     del g
-    cell_v, cell_p, cell_mask, cell_pyr, cell_cfg = cell_problem(dev)
-    shapes.append(("the cell's problem", cell_v, cell_p, cell_pyr, cell_cfg.mapper))
+    cells = {cs: cell_problem(dev, code_size=cs) for cs in (16, 32)}
+    shapes.append(("the cell's problem", cells[16][0], cells[16][1], cells[16][3], cells[16][4].mapper))
+    v, p, pyr = synthetic.bench_problem(device=dev, cs=32)
+    shapes.append(("the bench point at CS=32", v, ba.prepare_problem(p, pyr), pyr, mcfg))
+    v, p, pyr = synthetic.bench_problem(device=dev, cs=32, n_photo=48, n_geo=48)
+    shapes.append(("a mapper window at CS=32", v, ba.prepare_problem(p, pyr), pyr, mcfg))
+    shapes.append(("the CS=32 cell's problem", cells[32][0], cells[32][1], cells[32][3],
+                   cells[32][4].mapper))
     faults, worst = [], {}
     for i, (label, v, p, pyr, cfg) in enumerate(shapes):
         for vlabel, vv, w in prep_variants(v, p.window, seed=40 + i):
@@ -2987,27 +3048,21 @@ def prep_path(dev, card: str, peaks) -> dict:
                         worst[key] = max(worst.get(key, 0.0), val)
     if faults:
         fail("prep kernel against the plain chain:\n  " + "\n  ".join(faults))
-    # one prep launch an LM iteration of run_ba on the cell's problem
-    timing.reset()
-    timing.enable(True)
-    launches, k1 = pp.photo_prep_edges.launches, pr.photo_reduce.launches
-    _, err, iters, _ = ba.run_ba(cell_v, cell_p, cell_pyr, cell_cfg.mapper, cell_mask,
-                                 cell_cfg.mapper.max_gn_iters)
-    timing.enable(False)
-    launches, k1 = pp.photo_prep_edges.launches - launches, pr.photo_reduce.launches - k1
-    counted = sum(r.counts.get("photo.prep_kernel", 0) for r in timing.records() if r.name == "lin.photo")
-    timing.reset()
-    say(f"prep kernel on the cell's problem: run_ba {iters} LM iterations, error {float(err):.6g}; prep "
-        f"launches {launches}, photo.prep_kernel counts {counted}, K1 launches {k1}")
-    if not (launches == counted == k1 == iters) or not bool(torch.isfinite(err)):
-        fail(f"run_ba on the cell's problem: {launches} prep launches, {counted} counted, {k1} K1 launches "
-             f"for {iters} LM iterations (error {float(err)})")
+    counts = {cs: run_ba_counts(c[0], c[1], c[3], c[4].mapper, c[2], f"the CS={cs} cell's problem")
+              for cs, c in cells.items()}
     times = {"bench": prep_times(*shapes[0][1:], card, peak_bw, "the bench point"),
-             "cell": prep_times(cell_v, cell_p, cell_pyr, cell_cfg.mapper, card, peak_bw,
-                                "the cell's problem")}
+             "cell": prep_times(cells[16][0], cells[16][1], cells[16][3], cells[16][4].mapper, card,
+                                peak_bw, "the cell's problem"),
+             "bench_cs32": prep_times(*shapes[4][1:], card, peak_bw, "the bench point at CS=32"),
+             "cell_cs32": prep_times(cells[32][0], cells[32][1], cells[32][3], cells[32][4].mapper,
+                                     card, peak_bw, "the CS=32 cell's problem")}
+    k1 = {cs: cell_k1(c[0], c[1], c[3], c[4].mapper, card, peaks,
+                      f"the CS={cs} cell's prep (dim {13 + cs}, pad {counts[cs]['k1_pad']})")
+          for cs, c in cells.items()}
     secs = time.perf_counter() - t0
     say(f"phase 14 took {secs:.1f} s")
-    return dict(worst=worst, times=times, run_ba_launches=launches, seconds=secs)
+    return dict(worst=worst, times=times, k1=k1, run_ba_launches=counts[16]["launches"],
+                run_ba_launches_cs32=counts[32]["launches"], seconds=secs)
 
 
 def main() -> None:
@@ -3065,6 +3120,8 @@ def main() -> None:
         ((2, 4, 16, 100, 29), "N=100 (under two tiles)"),
         ((1, 4, 16, 3072, 29), "E=1"),
         ((4, 4, 16, 1024, 17), "dim=17"),
+        ((24, 4, 16, 3072, 45), "dim=45 (the 48-wide instantiation)"),
+        ((4, 4, 16, 1001, 30), "N=1001, dim=30 (the least dim of the 48-wide one)"),
     ]
     max_err = max_rel = 0.0
     before = pr.photo_reduce.launches
@@ -3311,6 +3368,7 @@ def main() -> None:
                                                  "bound_ms", "bound_by")},
         "backward": trained["backward"],
         "train_step_ms": trained["step_ms"],
+        "cell_shapes": {f"CS={cs}": t for cs, t in prepped["k1"].items()},
     }, {
         "name": "photo_prep",
         "route": "cuda",
@@ -3323,6 +3381,9 @@ def main() -> None:
         "timing": "device time, cold L2 (a 96 MB scratch buffer read three times before each call)",
         "bench_shape": prepped["times"]["bench"],
         "cell_shape": prepped["times"]["cell"],
+        "bench_shape_cs32": prepped["times"]["bench_cs32"],
+        "cell_shape_cs32": prepped["times"]["cell_cs32"],
+        "run_ba_launches_at_the_cs32_cell": prepped["run_ba_launches_cs32"],
     }]
     if old_ms is not None:
         kernels[0]["earlier_ms"] = old_ms

@@ -2,7 +2,9 @@
 
 Each library is built from its sources under ``ops/csrc/`` by one nvcc
 call, has a plain C interface and is loaded with ctypes: ``photometric``
-holds K1 (photo_reduce.cu) and the prep kernel (photo_prep.cu). Libraries
+holds K1 (photo_reduce.cu, at padded widths 32 and 48) and the prep kernel
+(photo_prep.cu, at code widths 16 and 32), every instantiation compiled
+by that one call. Libraries
 go to ``_build/`` beside this file (listed in .gitignore), named by the
 hash of their sources and the flags, so an edited source is rebuilt and
 an unchanged one is not. A build

@@ -14,7 +14,7 @@
 //   f0    [E, L, C, N]   source features, channel-major
 //   gate  [E, N]         (z > eps) * mask at the warped point
 //   kx, ky [E, dim, N]   K-rows, dim = 13 + CS: pose0 (6), pose1 (6),
-//                        code0 (CS), scale0 (1)
+//                        code0 (CS), scale0 (1); CS <= 32
 // from the window's tensors taken whole and the edge indices i0, i1:
 //   rot [K, 3, 3], trans [K, 3], code [K, CS], scale [K]   the variables
 //   homo [K, N, 3], bias_at [K, N], jac_at [K, N, CS]       source points
@@ -52,16 +52,19 @@
 //   outside the 2x2 taps the hat weights are zero.
 // * The per-point geometry stays in registers: depth decode, warp through
 //   R1^T R0, projection with the plain version's front / z rule, then the
-//   29 K-rows. Coordinates and the bilinear combine use round-to-nearest
-//   products and sums in the plain version's order (no contraction into
-//   FMA), so a point at the same coordinates samples the same bits.
+//   13 + CS K-rows. The code width W, the length of the register array
+//   that holds a point's code basis, is a template parameter, built at 16
+//   and 32 (the kernel names carry it: photo_prep_points<16>); the wrapper
+//   picks the smaller that holds CS. Coordinates and the bilinear combine
+//   use round-to-nearest products and sums in the plain version's order
+//   (no contraction into FMA), so a point at the same coordinates samples
+//   the same bits.
 // * FP32 only: no TF32, no atomics; the output is deterministic.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define PREP_MAX_LEVELS 8
-#define PREP_MAX_CODE 16  // dim = 13 + CS <= 29 (K1's MAX_DIM)
 #define PREP_THREADS 128
 
 struct PrepCamera {
@@ -132,6 +135,7 @@ __device__ __forceinline__ float combine(float a, float b, float c, float d, con
   return add(add(add(mul(a, w[0]), mul(b, w[1])), mul(c, w[2])), mul(d, w[3]));
 }
 
+template <int W>
 __global__ void __launch_bounds__(PREP_THREADS) photo_prep_points(
     const float* __restrict__ rot, const float* __restrict__ trans, const float* __restrict__ code,
     const float* __restrict__ scale, const long long* __restrict__ i0,
@@ -179,10 +183,10 @@ __global__ void __launch_bounds__(PREP_THREADS) photo_prep_points(
     jac = jac_flat + px * CS;
   }
   const float* code0 = code + k0 * CS;
-  float jv[PREP_MAX_CODE];
+  float jv[W];
   float dot = 0.0f;
 #pragma unroll
-  for (int k = 0; k < PREP_MAX_CODE; ++k) {
+  for (int k = 0; k < W; ++k) {
     if (k < CS) {
       jv[k] = jac[k];
       dot = fmaf(code0[k], jv[k], dot);
@@ -249,7 +253,7 @@ __global__ void __launch_bounds__(PREP_THREADS) photo_prep_points(
     }
     const float dxs = mul(dx, s0), dys = mul(dy, s0);
 #pragma unroll
-    for (int k = 0; k < PREP_MAX_CODE; ++k) {
+    for (int k = 0; k < W; ++k) {
       if (k < CS) {
         kxo[(long long)(12 + k) * N] = mul(dxs, jv[k]);
         kyo[(long long)(12 + k) * N] = mul(dys, jv[k]);
@@ -313,22 +317,23 @@ extern "C" const char* photo_prep_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// One launch on the current device's stream. cam: fx, fy, cx, cy, eps;
-// levels: width, height, offset of each level; ratios: rx, ry of each
-// level. bias_at and jac_at may be null (then loc1d, bias_flat and
-// jac_flat are read). The wrapper (ops/photo_prep.py) checks every shape,
-// dtype, alignment and limit first. Returns 0 or a CUDA error code.
+// One launch on the current device's stream. width: the instantiation, 16
+// or 32, with CS <= width; cam: fx, fy, cx, cy, eps; levels: width, height,
+// offset of each level; ratios: rx, ry of each level. bias_at and jac_at
+// may be null (then loc1d, bias_flat and jac_flat are read). The wrapper
+// (ops/photo_prep.py) checks every shape, dtype, alignment and limit
+// first. Returns 0 or a CUDA error code.
 extern "C" int photo_prep_launch(const float* rot, const float* trans, const float* code,
                                  const float* scale, const long long* i0, const long long* i1,
                                  const float* homo, const float* bias_at, const float* jac_at,
                                  const long long* loc1d, const float* bias_flat,
                                  const float* jac_flat, const float* src, const float* pixel,
                                  float* fgs, float* f0, float* gate, float* kx, float* ky, int E,
-                                 int N, int HW, int T, int PW, int C, int CS, int L, int soft,
-                                 const float* cam, const int* levels, const float* ratios,
-                                 void* stream) {
-  if (L < 1 || L > PREP_MAX_LEVELS || CS < 0 || CS > PREP_MAX_CODE || C % 4 != 0 || PW % 4 != 0 ||
-      E < 1 || N < 1)
+                                 int N, int HW, int T, int PW, int C, int CS, int width, int L,
+                                 int soft, const float* cam, const int* levels,
+                                 const float* ratios, void* stream) {
+  if (L < 1 || L > PREP_MAX_LEVELS || CS < 0 || CS > width || (width != 16 && width != 32) ||
+      C % 4 != 0 || PW % 4 != 0 || E < 1 || N < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   PrepCamera c{cam[0], cam[1], cam[2], cam[3], cam[4]};
   PrepLevels lv{};
@@ -340,8 +345,15 @@ extern "C" int photo_prep_launch(const float* rot, const float* trans, const flo
     lv.ry[l] = ratios[2 * l + 1];
   }
   const dim3 grid((N + PREP_THREADS - 1) / PREP_THREADS, E);
-  photo_prep_points<<<grid, PREP_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      rot, trans, code, scale, i0, i1, homo, bias_at, jac_at, loc1d, bias_flat, jac_flat, src,
-      pixel, fgs, f0, gate, kx, ky, N, HW, T, PW, C, CS, L, soft, c, lv);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (width == 16) {
+    photo_prep_points<16><<<grid, PREP_THREADS, 0, s>>>(
+        rot, trans, code, scale, i0, i1, homo, bias_at, jac_at, loc1d, bias_flat, jac_flat, src,
+        pixel, fgs, f0, gate, kx, ky, N, HW, T, PW, C, CS, L, soft, c, lv);
+  } else {
+    photo_prep_points<32><<<grid, PREP_THREADS, 0, s>>>(
+        rot, trans, code, scale, i0, i1, homo, bias_at, jac_at, loc1d, bias_flat, jac_flat, src,
+        pixel, fgs, f0, gate, kx, ky, N, HW, T, PW, C, CS, L, soft, c, lv);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,10 +7,12 @@
 //   fgs  [E, L, 3C, N]  target samples, rows f1 | gx | gy (d-major grads)
 //   f0   [E, L, C, N]   source features
 //   gate [E, N]
-//   kx, ky [E, dim, N]  K-rows, dim = 13 + CS <= 29
-// Output, un-normalised, in the TPU kernel's padded layout: out [E, 32, 32]
+//   kx, ky [E, dim, N]  K-rows, dim = 13 + CS <= 45
+// Output, un-normalised, in the TPU kernel's padded layout: out [E, P, P]
 // holds ata in [:dim, :dim], atb in column dim, err at [dim+1, dim+1] and
-// n_inl at [dim+1, dim+2] (the wrapper returns views of it).
+// n_inl at [dim+1, dim+2] (the wrapper returns views of it). The padded
+// width P is a template parameter, built at 32 (dim <= 29, CS <= 16) and
+// 48 (dim <= 45, CS <= 32); the wrapper picks the smaller that fits.
 //
 // Bound: memory. Every input is read once, about 93 MB at the window-BA
 // bench point (E=24, L=4, C=16, N=3072, dim=29): 28 us at 3.35 TB/s. The
@@ -31,7 +33,7 @@
 //   two tiles behind, and the blocks need not drift apart.
 // * A loop inside the block replaces the TPU's sequential grid axis. The
 //   grid is (splits, E); a block walks one point range of one edge in
-//   64-point tiles and keeps its 32x32 outputs in registers. The wrapper
+//   64-point tiles and keeps its PxP outputs in registers. The wrapper
 //   sizes the splits to fill every resident block slot once, and the
 //   ranges are equal to 4 points (not whole tiles), so no SM waits on
 //   another. A second tiny pass sums the splits of each edge in split
@@ -42,9 +44,11 @@
 // * A cheap contraction. Per tile, kgx = gxx kx + gxy ky and kgy = gxy kx +
 //   gyy ky are formed once per row (not once per output), then the padded
 //   product out += Kx^T Kgx + Ky^T Kgy is register-tiled: each consumer
-//   thread owns 4x4 outputs (rows ti + 8a, columns tj + 8b) over half of
-//   the tile's points, so one 16-byte shared load feeds 8 FMAs, and the
-//   [quad][row][4 points] layout keeps the loads free of bank conflicts.
+//   thread owns (P/8)x(P/8) outputs (rows ti + 8a, columns tj + 8b; 4x4
+//   at P = 32, 6x6 at 48) over half of the tile's points, so one 16-byte
+//   shared load feeds 8 FMAs, and the [quad][row][4 points] layout keeps
+//   the loads free of bank conflicts. At P = 48 the block's shared memory
+//   grows from 71 KB to 96 KB; two blocks an SM still fit.
 //   Only the upper triangle is summed (every output the caller reads lies
 //   there: ata's upper half, atb, err, n_inl); the second pass mirrors ata.
 //   The TPU kernel's padding trick gives every output from that one loop:
@@ -64,8 +68,6 @@
 
 #define TN 64                  // points per tile
 #define QUADS (TN / 4)         // 4-point groups per tile
-#define PAD 32                 // padded output width: dim + 3 <= PAD
-#define MAX_DIM (PAD - 3)
 #define MAX_LEVELS 8
 #define PRODUCERS 192          // 6 warps: fgs/f0, gate -> per-point Gram terms
 #define CONSUMERS 128          // 4 warps: K-rows, kgx/kgy, the contraction
@@ -82,17 +84,26 @@
 #define BAR_CONSUMERS 5  // consumers only
 #define BAR_PRODUCERS 6  // producers only
 
-// Shared memory, in floats (every offset a multiple of 4: 16-byte aligned).
-#define KTILE (QUADS * PAD * 4)            // one [quad][row][4 points] array
-#define STAGE (2 * KTILE)                  // kx, ky of one tile
-#define HANDOFF (PRODUCERS / 32 * 6 * TN)  // one partial per producer warp
+#define HANDOFF (PRODUCERS / 32 * 6 * TN)  // one partial per producer warp, in floats
 #define TERMS (NTERMS * TN)
-#define OFF_HANDOFF (2 * STAGE)
-#define OFF_TERMS (OFF_HANDOFF + 2 * HANDOFF)
-#define OFF_KG (OFF_TERMS + 2 * TERMS)  // kgx, kgy; at the end the group sums
-#define OFF_COEF (OFF_KG + 2 * KTILE)
-#define SMEM_FLOATS (OFF_COEF + MAX_LEVELS * 8)
-#define SMEM_BYTES (SMEM_FLOATS * 4)
+
+// The padded width P's instantiation: dim + 3 <= P, and its shared memory,
+// in floats (every offset a multiple of 4: 16-byte aligned).
+template <int P>
+struct Pad {
+  static_assert(P % 8 == 0 && P * P % COMBINE_THREADS == 0, "P: 8 | P, whole combine blocks");
+  static constexpr int MAX_DIM = P - 3;
+  static constexpr int R = P / 8;              // a consumer's outputs along each axis
+  static constexpr int KTILE = QUADS * P * 4;  // one [quad][row][4 points] array
+  static constexpr int STAGE = 2 * KTILE;      // kx, ky of one tile
+  static constexpr int OFF_HANDOFF = 2 * STAGE;
+  static constexpr int OFF_TERMS = OFF_HANDOFF + 2 * HANDOFF;
+  static constexpr int OFF_KG = OFF_TERMS + 2 * TERMS;  // kgx, kgy; at the end the group sums
+  static constexpr int OFF_COEF = OFF_KG + 2 * KTILE;
+  static constexpr int SMEM_FLOATS = OFF_COEF + MAX_LEVELS * 8;
+  static constexpr int SMEM_BYTES = SMEM_FLOATS * 4;
+  static_assert(GROUPS * P * P <= 2 * KTILE, "the group sums fit in kgx, kgy");
+};
 
 // Per level: w rx^2, w rx ry, w ry^2, w rx | w ry, w, 0, 0.
 struct LevelCoef {
@@ -151,21 +162,24 @@ __device__ __forceinline__ float4 load_quad(const float* p, int n, int hi) {
 
 // Consumers: cp.async of one tile's K-rows (rows < dim), points n0 ..
 // n0+TN-1 (zero from hi on), into a ring stage.
-template <bool kVec>
+template <int P, bool kVec>
 __device__ __forceinline__ void load_k_rows(float* stage, const float* __restrict__ kx,
                                             const float* __restrict__ ky, int ct, int e, int n0,
                                             int hi, int N, int dim) {
+  using Lay = Pad<P>;
   if (kVec) {
     // 16-byte units: a warp covers 8 rows x 4 quads, so each row reads
-    // 64 contiguous bytes and each 8-lane phase writes 8 consecutive units.
-    for (int u = ct; u < 2 * PAD * QUADS; u += CONSUMERS) {
-      const int row = (u & 7) + 8 * ((u >> 5) & 3);
-      const int q = ((u >> 3) & 3) + 4 * ((u >> 7) & 3);
-      const int arr = u >> 9;
+    // 64 contiguous bytes and each 8-lane phase writes 8 consecutive units;
+    // the warps' chunks walk P/8 row blocks, then 4 quad blocks, then kx | ky.
+    for (unsigned u = ct; u < 2u * P * QUADS; u += CONSUMERS) {
+      const unsigned w = u >> 5;
+      const int row = (u & 7) + 8 * (w % Lay::R);
+      const int q = ((u >> 3) & 3) + 4 * ((w / Lay::R) & 3);
+      const int arr = w / (4 * Lay::R);
       if (row >= dim) continue;
       const int n = n0 + 4 * q;
       const float* src = (arr ? ky : kx) + ((size_t)e * dim + row) * N + n;
-      cp_async16(stage + arr * KTILE + (q * PAD + row) * 4, n < hi ? src : kx, n < hi);
+      cp_async16(stage + arr * Lay::KTILE + (q * P + row) * 4, n < hi ? src : kx, n < hi);
     }
   } else {
     for (int u = ct; u < 2 * dim * TN; u += CONSUMERS) {
@@ -174,7 +188,7 @@ __device__ __forceinline__ void load_k_rows(float* stage, const float* __restric
       const int arr = u / (TN * dim);
       const int n = n0 + m;
       const float* src = (arr ? ky : kx) + ((size_t)e * dim + row) * N + n;
-      cp_async4(stage + arr * KTILE + ((m >> 2) * PAD + row) * 4 + (m & 3), n < hi ? src : kx,
+      cp_async4(stage + arr * Lay::KTILE + ((m >> 2) * P + row) * 4 + (m & 3), n < hi ? src : kx,
                 n < hi);
     }
   }
@@ -184,7 +198,7 @@ __device__ __forceinline__ void load_k_rows(float* stage, const float* __restric
 // ry^2 gy.gy, rx gx.d, ry gy.d, d.d) over (level, channel), one partial per
 // warp, then the warps' partials in warp order times gate^2 into
 // terms[tile & 1].
-template <bool kVec>
+template <int P, bool kVec>
 __device__ __forceinline__ void produce(const float* __restrict__ fgs,
                                         const float* __restrict__ f0,
                                         const float* __restrict__ gate, float* smem, int e,
@@ -196,7 +210,8 @@ __device__ __forceinline__ void produce(const float* __restrict__ fgs,
   const int slice = t / QUADS;  // and its (level, channel) rows slice, slice + SLICES, ..
   const int K = L * C;
   const int dl = SLICES / C, dc = SLICES % C;  // (level, channel) step of a slice
-  const float4* coef = reinterpret_cast<const float4*>(smem + OFF_COEF);
+  using Lay = Pad<P>;
+  const float4* coef = reinterpret_cast<const float4*>(smem + Lay::OFF_COEF);
   for (int i = 0; i < n_tiles; ++i) {
     const int b = i & 1;
     const int n0 = lo + i * TN;
@@ -243,7 +258,7 @@ __device__ __forceinline__ void produce(const float* __restrict__ fgs,
     for (int j = 0; j < 6; ++j)
 #pragma unroll
       for (int p = 0; p < 4; ++p) g[j][p] += __shfl_xor_sync(0xffffffffu, g[j][p], 16);
-    float* part = smem + OFF_HANDOFF + b * HANDOFF;
+    float* part = smem + Lay::OFF_HANDOFF + b * HANDOFF;
     if (lane < 16) {
 #pragma unroll
       for (int j = 0; j < 6; ++j) {
@@ -253,7 +268,7 @@ __device__ __forceinline__ void produce(const float* __restrict__ fgs,
     }
     bar_sync(BAR_PRODUCERS, PRODUCERS);  // every warp's partial of this tile
     if (i >= 2) bar_sync(BAR_FREE + b, THREADS);  // consumers are done with terms[b]
-    float* terms = smem + OFF_TERMS + b * TERMS;
+    float* terms = smem + Lay::OFF_TERMS + b * TERMS;
     const float g2 = gv * gv;
     for (int u = t; u < NTERMS * TN; u += PRODUCERS) {
       const int term = u / TN;
@@ -271,35 +286,37 @@ __device__ __forceinline__ void produce(const float* __restrict__ fgs,
 }
 
 // Consumers: the padded product of the block's tiles, then the block's
-// partial [32, 32] (point groups summed in group order).
-template <bool kVec>
+// partial [P, P] (point groups summed in group order).
+template <int P, bool kVec>
 __device__ __forceinline__ void consume(const float* __restrict__ kx,
                                         const float* __restrict__ ky, float* smem,
                                         float* __restrict__ partial, int e, int split,
                                         int splits, int N, int dim, int lo, int hi,
                                         int n_tiles) {
+  using Lay = Pad<P>;
+  constexpr int R = Lay::R;
   const int ct = threadIdx.x - PRODUCERS;
-  float* s_kgx = smem + OFF_KG;
-  float* s_kgy = s_kgx + KTILE;
+  float* s_kgx = smem + Lay::OFF_KG;
+  float* s_kgy = s_kgx + Lay::KTILE;
   // output rows ti + 8a, columns tj + 8b, point group grp
   const int grp = ct / 64;
   const int ti = (ct % 64) / 8;
   const int tj = ct % 8;
-  float acc[4][4];
+  float acc[R][R];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int a = 0; a < R; ++a)
 #pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+    for (int b = 0; b < R; ++b) acc[a][b] = 0.f;
 
-  load_k_rows<kVec>(smem, kx, ky, ct, e, lo, hi, N, dim);
+  load_k_rows<P, kVec>(smem, kx, ky, ct, e, lo, hi, N, dim);
   cp_async_commit();
   for (int i = 0; i < n_tiles; ++i) {
     const int b = i & 1;
     const int n0 = lo + i * TN;
-    const float* stage = smem + b * STAGE;
+    const float* stage = smem + b * Lay::STAGE;
     if (i + 1 < n_tiles) {
       // the other stage was last read before the previous tile's last barrier
-      load_k_rows<kVec>(smem + (b ^ 1) * STAGE, kx, ky, ct, e, n0 + TN, hi, N, dim);
+      load_k_rows<P, kVec>(smem + (b ^ 1) * Lay::STAGE, kx, ky, ct, e, n0 + TN, hi, N, dim);
     }
     cp_async_commit();  // possibly empty: this tile's group is then never the newest
     cp_async_wait_prev();
@@ -307,12 +324,12 @@ __device__ __forceinline__ void consume(const float* __restrict__ kx,
 
     // padded kgx, kgy rows of this tile
     {
-      const float4* terms = reinterpret_cast<const float4*>(smem + OFF_TERMS + b * TERMS);
+      const float4* terms = reinterpret_cast<const float4*>(smem + Lay::OFF_TERMS + b * TERMS);
       const float4* skx = reinterpret_cast<const float4*>(stage);
-      const float4* sky = reinterpret_cast<const float4*>(stage + KTILE);
-      for (int u = ct; u < QUADS * PAD; u += CONSUMERS) {
-        const int row = u % PAD;
-        const int qq = u / PAD;
+      const float4* sky = reinterpret_cast<const float4*>(stage + Lay::KTILE);
+      for (int u = ct; u < QUADS * P; u += CONSUMERS) {
+        const int row = u % P;
+        const int qq = u / P;
         const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
         float4 X = zero, Y = zero;
         if (row < dim) {
@@ -341,23 +358,23 @@ __device__ __forceinline__ void consume(const float* __restrict__ kx,
     // out += Kx^T Kgx + Ky^T Kgy over this group's quads of the tile
     {
       const float4* X4 = reinterpret_cast<const float4*>(stage);
-      const float4* Y4 = reinterpret_cast<const float4*>(stage + KTILE);
+      const float4* Y4 = reinterpret_cast<const float4*>(stage + Lay::KTILE);
       const float4* GX4 = reinterpret_cast<const float4*>(s_kgx);
       const float4* GY4 = reinterpret_cast<const float4*>(s_kgy);
       const int live_quads = min(QUADS, (hi - n0 + 3) / 4);
       for (int qq = grp; qq < live_quads; qq += GROUPS) {
-        float4 ax[4], ay[4];
+        float4 ax[R], ay[R];
 #pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          ax[a] = X4[qq * PAD + ti + 8 * a];
-          ay[a] = Y4[qq * PAD + ti + 8 * a];
+        for (int a = 0; a < R; ++a) {
+          ax[a] = X4[qq * P + ti + 8 * a];
+          ay[a] = Y4[qq * P + ti + 8 * a];
         }
 #pragma unroll
-        for (int b2 = 0; b2 < 4; ++b2) {
-          const float4 bx = GX4[qq * PAD + tj + 8 * b2];
-          const float4 by = GY4[qq * PAD + tj + 8 * b2];
+        for (int b2 = 0; b2 < R; ++b2) {
+          const float4 bx = GX4[qq * P + tj + 8 * b2];
+          const float4 by = GY4[qq * P + tj + 8 * b2];
 #pragma unroll
-          for (int a = 0; a < 4; ++a) {
+          for (int a = 0; a < R; ++a) {
             // only the upper triangle (row <= column): rows ti + 8a < tj + 8b2
             // when a < b2, never when a > b2
             if (a > b2 || (a == b2 && ti > tj)) continue;
@@ -379,29 +396,30 @@ __device__ __forceinline__ void consume(const float* __restrict__ kx,
   }
 
   // the point groups' sums in group order -> this split's partial
-  float* red = smem + OFF_KG;
+  float* red = smem + Lay::OFF_KG;
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int a = 0; a < R; ++a)
 #pragma unroll
-    for (int b = 0; b < 4; ++b) red[grp * PAD * PAD + (ti + 8 * a) * PAD + tj + 8 * b] = acc[a][b];
+    for (int b = 0; b < R; ++b) red[grp * P * P + (ti + 8 * a) * P + tj + 8 * b] = acc[a][b];
   bar_sync(BAR_CONSUMERS, CONSUMERS);
-  float* mine = partial + ((size_t)e * splits + split) * PAD * PAD;
-  for (int o = ct; o < PAD * PAD; o += CONSUMERS) {
+  float* mine = partial + ((size_t)e * splits + split) * P * P;
+  for (int o = ct; o < P * P; o += CONSUMERS) {
     float sum = red[o];
 #pragma unroll
-    for (int g = 1; g < GROUPS; ++g) sum += red[g * PAD * PAD + o];
+    for (int g = 1; g < GROUPS; ++g) sum += red[g * P * P + o];
     mine[o] = sum;
   }
 }
 
-// Per block: the padded 32x32 product of one point range of edge
+// Per block: the padded PxP product of one point range of edge
 // blockIdx.y, written to partial[e, split].
-template <bool kVec>
+template <int P, bool kVec>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) photo_reduce_split(
     const float* __restrict__ fgs, const float* __restrict__ f0,
     const float* __restrict__ gate, const float* __restrict__ kx,
     const float* __restrict__ ky, float* __restrict__ partial, int L, int C, int N,
     int dim, LevelCoef coef) {
+  using Lay = Pad<P>;
   extern __shared__ __align__(16) float smem[];
   const int t = threadIdx.x;
   const int split = blockIdx.x;
@@ -411,85 +429,116 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) photo_reduce_split(
   const int hi = split_start(split + 1, splits, N);
   const int n_tiles = (hi - lo + TN - 1) / TN;
 
-  if (t < L * 8) smem[OFF_COEF + t] = coef.c[t];
+  if (t < L * 8) smem[Lay::OFF_COEF + t] = coef.c[t];
   // padded K-rows of both stages: row dim+1 of kx is ones, the rest zero
-  for (int u = t; u < 2 * 2 * QUADS * PAD; u += THREADS) {
-    const int row = u % PAD;
+  for (int u = t; u < 2 * 2 * QUADS * P; u += THREADS) {
+    const int row = u % P;
     if (row < dim) continue;
-    const int q = (u / PAD) % QUADS;
-    const int arr = (u / (PAD * QUADS)) & 1;
-    const int st = u / (2 * PAD * QUADS);
+    const int q = (u / P) % QUADS;
+    const int arr = (u / (P * QUADS)) & 1;
+    const int st = u / (2 * P * QUADS);
     const float v = (arr == 0 && row == dim + 1) ? 1.f : 0.f;
-    reinterpret_cast<float4*>(smem + st * STAGE + arr * KTILE)[q * PAD + row] =
+    reinterpret_cast<float4*>(smem + st * Lay::STAGE + arr * Lay::KTILE)[q * P + row] =
         make_float4(v, v, v, v);
   }
   __syncthreads();
   if (t < PRODUCERS) {
-    produce<kVec>(fgs, f0, gate, smem, e, L, C, N, lo, hi, n_tiles);
+    produce<P, kVec>(fgs, f0, gate, smem, e, L, C, N, lo, hi, n_tiles);
   } else {
-    consume<kVec>(kx, ky, smem, partial, e, split, splits, N, dim, lo, hi, n_tiles);
+    consume<P, kVec>(kx, ky, smem, partial, e, split, splits, N, dim, lo, hi, n_tiles);
   }
 }
 
-// Per (edge, quarter of the outputs): the splits' partials summed in split
-// order, 8 loads in flight. The lower triangle of ata is read from the
-// upper partials, so ata is bit-symmetric.
+// Per (edge, P*P/256-th of the outputs): the splits' partials summed in
+// split order, 8 loads in flight. The lower triangle of ata is read from
+// the upper partials, so ata is bit-symmetric.
+template <int P>
 __global__ void __launch_bounds__(COMBINE_THREADS) photo_reduce_combine(
     const float* __restrict__ partial, float* __restrict__ out, int splits, int dim) {
   const int e = blockIdx.y;
   const int o = blockIdx.x * COMBINE_THREADS + threadIdx.x;
-  const int r = o / PAD;
-  const int c = o % PAD;
-  const float* p = partial + (size_t)e * splits * PAD * PAD + ((r > c && r < dim) ? c * PAD + r : o);
+  const int r = o / P;
+  const int c = o % P;
+  const float* p = partial + (size_t)e * splits * P * P + ((r > c && r < dim) ? c * P + r : o);
   float sum = 0.f;
   for (int s0 = 0; s0 < splits; s0 += 8) {
     float v[8];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) v[k] = s0 + k < splits ? p[(size_t)(s0 + k) * PAD * PAD] : 0.f;
+    for (int k = 0; k < 8; ++k) v[k] = s0 + k < splits ? p[(size_t)(s0 + k) * P * P] : 0.f;
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
       if (s0 + k < splits) sum += v[k];
     }
   }
-  out[(size_t)e * PAD * PAD + o] = sum;
+  out[(size_t)e * P * P + o] = sum;
 }
 
 extern "C" const char* photo_reduce_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Sets the kernels' shared-memory limit on the current device and returns
-// its resident block slots (blocks per SM x SMs), or a negative CUDA error
-// code. Call once per device before photo_reduce_launch.
-extern "C" int photo_reduce_slots(void) {
+template <int P>
+static int slots_for(void) {
+  const int bytes = Pad<P>::SMEM_BYTES;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t st = cudaGetDevice(&dev);
   if (st == cudaSuccess) st = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (st == cudaSuccess) {
-    st = cudaFuncSetAttribute(photo_reduce_split<true>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    st = cudaFuncSetAttribute(photo_reduce_split<P, true>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   }
   if (st == cudaSuccess) {
-    st = cudaFuncSetAttribute(photo_reduce_split<false>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    st = cudaFuncSetAttribute(photo_reduce_split<P, false>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   }
   if (st == cudaSuccess) {
-    st = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, photo_reduce_split<true>, THREADS,
-                                                       SMEM_BYTES);
+    st = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, photo_reduce_split<P, true>,
+                                                       THREADS, bytes);
   }
   if (st != cudaSuccess) return -static_cast<int>(st);
   return per_sm * sms;
 }
 
-// host_params: L weights, then L x-ratios, then L y-ratios (host memory).
-// partial: [E, splits, 32, 32] scratch; out: [E, 32, 32]; splits <= N / 64
-// (or 1). Returns cudaGetLastError() after the launches (0 on success).
+// Sets the pad-wide kernels' shared-memory limit on the current device and
+// returns their resident block slots (blocks per SM x SMs), or a negative
+// CUDA error code. Call once per device and pad before photo_reduce_launch.
+extern "C" int photo_reduce_slots(int pad) {
+  if (pad == 32) return slots_for<32>();
+  if (pad == 48) return slots_for<48>();
+  return -static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int P>
+static int launch(const float* fgs, const float* f0, const float* gate, const float* kx,
+                  const float* ky, float* partial, float* out, int E, int L, int C, int N,
+                  int dim, int splits, const LevelCoef& coef, bool vec, cudaStream_t s) {
+  if (dim > Pad<P>::MAX_DIM) return static_cast<int>(cudaErrorInvalidValue);
+  const int bytes = Pad<P>::SMEM_BYTES;
+  const dim3 grid(splits, E);
+  if (vec) {
+    photo_reduce_split<P, true><<<grid, THREADS, bytes, s>>>(fgs, f0, gate, kx, ky, partial, L,
+                                                             C, N, dim, coef);
+  } else {
+    photo_reduce_split<P, false><<<grid, THREADS, bytes, s>>>(fgs, f0, gate, kx, ky, partial, L,
+                                                              C, N, dim, coef);
+  }
+  cudaError_t st = cudaGetLastError();
+  if (st != cudaSuccess) return static_cast<int>(st);
+  photo_reduce_combine<P><<<dim3(P * P / COMBINE_THREADS, E), COMBINE_THREADS, 0, s>>>(
+      partial, out, splits, dim);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// pad: the instantiation, 32 or 48, with dim + 3 <= pad. host_params: L
+// weights, then L x-ratios, then L y-ratios (host memory). partial:
+// [E, splits, pad, pad] scratch; out: [E, pad, pad]; splits <= N / 64 (or
+// 1). Returns cudaGetLastError() after the launches (0 on success).
 extern "C" int photo_reduce_launch(const float* fgs, const float* f0, const float* gate,
                                    const float* kx, const float* ky, float* partial, float* out,
-                                   int E, int L, int C, int N, int dim, int splits,
+                                   int E, int L, int C, int N, int dim, int pad, int splits,
                                    const float* host_params, void* stream) {
   if (E < 1 || E > 65535 || L < 1 || L > MAX_LEVELS || C < 1 || N < 1 || dim < 1 ||
-      dim > MAX_DIM || splits < 1 || (splits > 1 && splits > N / TN)) {
+      splits < 1 || (splits > 1 && splits > N / TN)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   LevelCoef coef = {};
@@ -508,17 +557,11 @@ extern "C" int photo_reduce_launch(const float* fgs, const float* f0, const floa
                           reinterpret_cast<uintptr_t>(ky);
   const bool vec = N % 4 == 0 && (align & 15) == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(splits, E);
-  if (vec) {
-    photo_reduce_split<true><<<grid, THREADS, SMEM_BYTES, s>>>(fgs, f0, gate, kx, ky, partial,
-                                                               L, C, N, dim, coef);
-  } else {
-    photo_reduce_split<false><<<grid, THREADS, SMEM_BYTES, s>>>(fgs, f0, gate, kx, ky, partial,
-                                                                L, C, N, dim, coef);
+  if (pad == 32) {
+    return launch<32>(fgs, f0, gate, kx, ky, partial, out, E, L, C, N, dim, splits, coef, vec, s);
   }
-  cudaError_t st = cudaGetLastError();
-  if (st != cudaSuccess) return static_cast<int>(st);
-  photo_reduce_combine<<<dim3(PAD * PAD / COMBINE_THREADS, E), COMBINE_THREADS, 0, s>>>(
-      partial, out, splits, dim);
-  return static_cast<int>(cudaGetLastError());
+  if (pad == 48) {
+    return launch<48>(fgs, f0, gate, kx, ky, partial, out, E, L, C, N, dim, splits, coef, vec, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

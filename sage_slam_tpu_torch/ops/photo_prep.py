@@ -5,6 +5,10 @@ the target sampling and the K-rows of every edge.
 whose note has the design and its bound) and returns what
 ops/photometric.photo_prep returns, the five inputs of K1 in K1's layouts:
 fgs [E, L, 3C, N], f0_cm [E, L, C, N], gate [E, N], kx and ky [E, 13+CS, N].
+The kernel's code width W (the register array of a point's code basis) is
+a template parameter, built at 16 and 32; ``code_width`` picks the smaller
+that holds CS, and each launch adds W to the ``utils/timing`` count
+``photo.prep_cs`` of the span open around it.
 It takes the window's tensors whole and the edge indices, and samples the
 target frames from the window's ``pixel_fg``, ``pixel_table``'s
 point-major rows (built once a keyframe by Mapper.frame_tables, or once a
@@ -26,10 +30,22 @@ import functools
 import torch
 
 from ..geometry.camera import CameraPyramid
-from .photo_reduce import MAX_DIM, MAX_LEVELS  # K1's limits (csrc/photo_prep.cu PREP_MAX_*)
+from ..utils import timing
+from .photo_reduce import MAX_DIM, MAX_LEVELS  # K1's limits (csrc/photo_prep.cu PREP_MAX_LEVELS)
 
-MAX_CODE = MAX_DIM - 13  # dim = 13 + CS
+CODE_WIDTHS = (16, 32)  # the kernel's code widths (csrc/photo_prep.cu photo_prep_points<W>)
+MAX_CODE = CODE_WIDTHS[-1]  # dim = 13 + CS <= MAX_DIM
 MAX_EDGES = 65535  # the grid's second axis
+
+
+def code_width(cs: int) -> int:
+    """The code width of the kernel's instantiation for a code of ``cs``
+    entries: the smallest of CODE_WIDTHS that holds it. Raises above
+    MAX_CODE."""
+    for width in CODE_WIDTHS:
+        if cs <= width:
+            return width
+    raise ValueError(f"photo_prep kernel: CS={cs}, dim={13 + cs} (max {MAX_DIM})")
 
 
 def row_width(c: int) -> int:
@@ -94,9 +110,9 @@ def check_inputs(rot, trans, code, scale, i0, i1, window, cam_pyr: CameraPyramid
         raise ValueError("photo_prep kernel: expected src_feats [K, L, N, C] and code [K, CS]")
     k, lv, n, c = src.shape
     cs = code.shape[1]
-    if lv > MAX_LEVELS or cs > MAX_CODE:
-        raise ValueError(f"photo_prep kernel: L={lv} (max {MAX_LEVELS}), "
-                         f"dim={13 + cs} (max {MAX_DIM})")
+    if lv > MAX_LEVELS:
+        raise ValueError(f"photo_prep kernel: L={lv} (max {MAX_LEVELS})")
+    code_width(cs)
     if c % 4:
         raise ValueError(f"photo_prep kernel: C={c} is not a multiple of 4")
     e = i0.shape[0]
@@ -137,7 +153,7 @@ def _library() -> ctypes.CDLL:
 
     lib = load_library("photometric")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.photo_prep_launch.argtypes = [ptr] * 19 + [i32] * 9 + [ptr] * 4
+    lib.photo_prep_launch.argtypes = [ptr] * 19 + [i32] * 10 + [ptr] * 4
     lib.photo_prep_launch.restype = i32
     lib.photo_prep_error_string.argtypes = [i32]
     lib.photo_prep_error_string.restype = ctypes.c_char_p
@@ -166,6 +182,7 @@ def _launch(rot, trans, code, scale, i0, i1, window, cam_pyr, eps, soft):
             return _launch(rot, trans, code, scale, i0, i1, window, cam_pyr, eps, soft)
     e, _, n, c, cs, lv = check_inputs(rot, trans, code, scale, i0, i1, window, cam_pyr)
     dim = 13 + cs
+    width = code_width(cs)
     fgs = torch.empty((e, lv, 3 * c, n), dtype=torch.float32, device=dev)
     f0 = torch.empty((e, lv, c, n), dtype=torch.float32, device=dev)
     gate = torch.empty((e, n), dtype=torch.float32, device=dev)
@@ -180,13 +197,15 @@ def _launch(rot, trans, code, scale, i0, i1, window, cam_pyr, eps, soft):
         i1.data_ptr(), w.homo.data_ptr(), ptr(w.bias_at), ptr(w.jac_at), w.loc1d.data_ptr(),
         w.bias_flat.data_ptr(), w.jac_flat.data_ptr(), w.src_feats.data_ptr(), pixel.data_ptr(),
         fgs.data_ptr(), f0.data_ptr(), gate.data_ptr(), kx.data_ptr(), ky.data_ptr(),
-        e, n, cam_pyr[0].num_pixels, cam_pyr.total_pixels, pixel.shape[-1], c, cs, lv, int(soft),
+        e, n, cam_pyr[0].num_pixels, cam_pyr.total_pixels, pixel.shape[-1], c, cs, width, lv,
+        int(soft),
         *_host_params(cam_pyr, float(eps)), torch.cuda.current_stream(dev).cuda_stream,
     )
     if status != 0:
         raise RuntimeError(f"photo_prep kernel launch failed: CUDA error {status} "
                            f"({lib.photo_prep_error_string(status).decode()})")
     photo_prep_edges.launches += 1
+    timing.count("photo.prep_cs", width)
     return fgs, f0, gate, kx, ky
 
 

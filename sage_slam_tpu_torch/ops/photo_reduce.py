@@ -24,20 +24,23 @@ tile (warp specialisation); the K-rows come through a 2-stage cp.async
 ring. Each block walks one point range in 64-point tiles on a (splits, E)
 grid that ``num_splits`` sizes to fill every resident block slot once. The
 contraction is the TPU kernel's padded product (atb, err and n_inl ride
-padding rows of a 32x32 product), register-tiled 4x4 per thread, upper
-triangle only. A second tiny pass sums the splits in split order and
-mirrors ata: deterministic, no atomics, ata bit-symmetric. FP32 FMA only:
-no TF32, no tensor cores.
+padding rows of a PxP product), register-tiled (P/8)x(P/8) per thread,
+upper triangle only. The padded width P is the kernel's template
+parameter, built at 32 (dim <= 29: CS <= 16) and 48 (dim <= 45: CS <= 32);
+``pad_for`` picks the smaller that fits. A second tiny pass sums the
+splits in split order and mirrors ata: deterministic, no atomics, ata
+bit-symmetric. FP32 FMA only: no TF32, no tensor cores.
 
 The host side is kept small: one output buffer per call (the padded
-[E, 32, 32] result, returned as views by ``unpack_padded``, followed by
+[E, P, P] result, returned as views by ``unpack_padded``, followed by
 the splits' partials), the split count from a cached occupancy query, one
 ctypes call.
 
 ``photo_reduce`` launches the kernel for CUDA tensors (and raises if the
 build or the launch fails; it never falls back) and runs
 ``photo_reduce_ref`` for CPU tensors. ``photo_reduce.launches`` counts
-kernel launches.
+kernel launches; each launch also adds its P to the ``utils/timing`` count
+``photo.k1_pad`` of the span open around it.
 
 Training differentiates through the reduce. On CUDA tensors that carry a
 graph the launch goes through ``PhotoReduceFn``, whose backward is written
@@ -54,10 +57,22 @@ import functools
 
 import torch
 
+from ..utils import timing
+
 MAX_LEVELS = 8  # the kernel's per-level coefficient arrays
-PAD = 32  # the kernel's padded product width (csrc/photo_reduce.cu PAD)
-MAX_DIM = PAD - 3  # dim = 13 + CS, plus the atb / err / n_inl rows
+PADS = (32, 48)  # the kernel's padded product widths (csrc/photo_reduce.cu Pad<P>)
+MAX_DIM = PADS[-1] - 3  # dim = 13 + CS, plus the atb / err / n_inl rows
 TILE_POINTS = 64  # points per tile (csrc/photo_reduce.cu TN)
+
+
+def pad_for(dim: int) -> int:
+    """The padded width of the kernel's instantiation for a block of
+    ``dim`` variables: the smallest of PADS with room for dim and the three
+    padding rows. Raises above MAX_DIM."""
+    for pad in PADS:
+        if dim + 3 <= pad:
+            return pad
+    raise ValueError(f"photo_reduce kernel: dim={dim} (max {MAX_DIM})")
 
 
 def photo_reduce_ref(fgs, f0_cm, gate, kx, ky, weights, ratios):
@@ -101,11 +116,11 @@ def _library() -> ctypes.CDLL:
 
     lib = load_library("photometric")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.photo_reduce_launch.argtypes = [ptr] * 7 + [i32] * 6 + [
+    lib.photo_reduce_launch.argtypes = [ptr] * 7 + [i32] * 7 + [
         ctypes.POINTER(ctypes.c_float), ptr,
     ]
     lib.photo_reduce_launch.restype = i32
-    lib.photo_reduce_slots.argtypes = []
+    lib.photo_reduce_slots.argtypes = [i32]
     lib.photo_reduce_slots.restype = i32
     lib.photo_reduce_error_string.argtypes = [i32]
     lib.photo_reduce_error_string.restype = ctypes.c_char_p
@@ -121,10 +136,11 @@ def _raise_cuda(what: str, status: int):
 
 
 @functools.cache
-def _slots(device_index: int) -> int:
-    """Resident block slots of the kernel on one card (blocks per SM x SMs)."""
+def _slots(device_index: int, pad: int) -> int:
+    """Resident block slots of the pad-wide kernel on one card (blocks per
+    SM x SMs)."""
     with torch.cuda.device(device_index):
-        slots = _library().photo_reduce_slots()
+        slots = _library().photo_reduce_slots(pad)
     if slots <= 0:
         _raise_cuda("occupancy query", -slots)
     return slots
@@ -188,10 +204,9 @@ def _launch(fgs, f0_cm, gate, kx, ky, host_weights, ratios):
     or the launch fails."""
     e, lv, c3, n = fgs.shape
     dim = kx.shape[1]
-    if lv > MAX_LEVELS or dim > MAX_DIM:
-        raise ValueError(
-            f"photo_reduce kernel: L={lv} (max {MAX_LEVELS}), dim={dim} (max {MAX_DIM})"
-        )
+    if lv > MAX_LEVELS:
+        raise ValueError(f"photo_reduce kernel: L={lv} (max {MAX_LEVELS})")
+    pad = pad_for(dim)
     for name, t in (("fgs", fgs), ("f0_cm", f0_cm), ("gate", gate), ("kx", kx), ("ky", ky)):
         if not t.is_contiguous():
             raise ValueError(f"photo_reduce kernel: {name} is not contiguous")
@@ -200,9 +215,9 @@ def _launch(fgs, f0_cm, gate, kx, ky, host_weights, ratios):
         with torch.cuda.device(dev):
             return _launch(fgs, f0_cm, gate, kx, ky, host_weights, ratios)
     lib = _library()
-    splits = num_splits(n, e, _slots(dev.index))
-    # one buffer: the padded result [E, PAD, PAD], then the splits' partials
-    buf = torch.empty((e * (1 + splits), PAD, PAD), dtype=torch.float32, device=dev)
+    splits = num_splits(n, e, _slots(dev.index, pad))
+    # one buffer: the padded result [E, pad, pad], then the splits' partials
+    buf = torch.empty((e * (1 + splits), pad, pad), dtype=torch.float32, device=dev)
     host = (ctypes.c_float * (3 * lv))(
         *host_weights[:lv],
         *[float(r[0]) for r in ratios],
@@ -211,12 +226,13 @@ def _launch(fgs, f0_cm, gate, kx, ky, host_weights, ratios):
     stream = torch.cuda.current_stream(dev).cuda_stream
     status = lib.photo_reduce_launch(
         fgs.data_ptr(), f0_cm.data_ptr(), gate.data_ptr(), kx.data_ptr(), ky.data_ptr(),
-        buf.data_ptr() + 4 * e * PAD * PAD, buf.data_ptr(), e, lv, c3 // 3, n, dim, splits, host,
-        stream,
+        buf.data_ptr() + 4 * e * pad * pad, buf.data_ptr(), e, lv, c3 // 3, n, dim, pad, splits,
+        host, stream,
     )
     if status != 0:
         _raise_cuda("launch", status)
     photo_reduce.launches += 1
+    timing.count("photo.k1_pad", pad)
     return unpack_padded(buf[:e], dim)
 
 

@@ -67,7 +67,7 @@ def main():
     for _ in range(5):
         call()
     torch.cuda.synchronize()
-    slots = pr._slots(ins[0].device.index)
+    slots = pr._slots(ins[0].device.index, pr.pad_for(dim))
     splits = pr.num_splits(n, e, slots)
     sizes = sorted({b - a for a, b in pr.split_ranges(n, splits)})
     print(f"plan: {slots} resident block slots, {splits} splits per edge, grid "

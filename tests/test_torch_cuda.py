@@ -69,6 +69,12 @@ CASES = [
     pytest.param((1, 4, 16, 3072, 29), True, True, id="one-edge-soft"),
     pytest.param((4, 4, 16, 1024, 17), False, True, id="dim17-binary"),
     pytest.param((3, 4, 16, 512, 29), True, False, id="misaligned-soft"),
+    # the 48-wide instantiation (dim 30 to 45: CS = 32 is dim 45)
+    pytest.param((24, 4, 16, 3072, 45), False, True, id="bench-dim45"),
+    pytest.param((3, 4, 16, 512, 45), True, True, id="pallas-dim45-soft"),
+    pytest.param((4, 4, 16, 1001, 45), True, True, id="n1001-dim45-soft"),
+    pytest.param((2, 4, 16, 100, 30), False, True, id="n100-dim30-binary"),
+    pytest.param((3, 4, 16, 512, 45), True, False, id="misaligned-dim45-soft"),
 ]
 
 
@@ -97,9 +103,10 @@ def test_kernel_matches_plain(cuda, shape, soft, aligned):
     np.testing.assert_array_equal(ata, np.swapaxes(ata, -1, -2))  # bit-symmetric
 
 
-@pytest.mark.parametrize("n", [3072, 1001], ids=["vector-loads", "scalar-loads"])
-def test_kernel_is_deterministic(cuda, n):
-    ins = [x.to(cuda) for x in _inputs(24, 4, 16, n, 29, soft=True, seed=3)]
+@pytest.mark.parametrize("n,dim", [(3072, 29), (1001, 29), (3072, 45)],
+                         ids=["vector-loads", "scalar-loads", "vector-loads-dim45"])
+def test_kernel_is_deterministic(cuda, n, dim):
+    ins = [x.to(cuda) for x in _inputs(24, 4, 16, n, dim, soft=True, seed=3)]
     ratios = tuple((0.5**i, 0.5**i) for i in range(4))
     first = [x.clone() for x in tred.photo_reduce(*ins, WEIGHTS, ratios)]
     second = tred.photo_reduce(*ins, WEIGHTS, ratios)
@@ -109,9 +116,9 @@ def test_kernel_is_deterministic(cuda, n):
 
 
 def test_kernel_refuses_what_it_cannot_take(cuda):
-    ins = [x.to(cuda) for x in _inputs(2, 4, 16, 64, 30, soft=False)]
+    ins = [x.to(cuda) for x in _inputs(2, 4, 16, 64, 46, soft=False)]
     ratios = tuple((0.5**i, 0.5**i) for i in range(4))
-    with pytest.raises(ValueError):  # dim 30 > MAX_DIM: no room for the padding rows
+    with pytest.raises(ValueError):  # dim 46 > MAX_DIM: no room for the padding rows at 48
         tred.photo_reduce(*ins, WEIGHTS, ratios)
     ins = [x.to(cuda) for x in _inputs(2, 4, 16, 64, 29, soft=False)]
     with pytest.raises(ValueError):  # non-contiguous
@@ -188,6 +195,7 @@ BACKWARD_CASES = [
     pytest.param((1, 4, 16, 128, 29), True, id="training-shape-soft"),
     pytest.param((24, 4, 16, 3072, 29), False, id="bench-binary"),
     pytest.param((3, 4, 16, 1001, 17), True, id="n1001-dim17-soft"),
+    pytest.param((24, 4, 16, 3072, 45), True, id="bench-dim45-soft"),
 ]
 
 
@@ -239,17 +247,19 @@ def _double(tree):
     return tree
 
 
-def _bench_prep(dev, soft, flat=False):
-    """The prep kernel's and the plain chain's outputs on the bench point's
-    photometric edges (drawn codes and scales; ``flat`` drops the prepared
-    decode tables), the plain chain's in float64, and the pyramid."""
+def _bench_prep(dev, soft, flat=False, cs=16, k=8, n_photo=24):
+    """The prep kernel's and the plain chain's outputs on the photometric
+    edges of the bench point's problem (``k`` keyframes, ``n_photo`` ring
+    edges, a ``cs``-dim code; drawn codes and scales; ``flat`` drops the
+    prepared decode tables), the plain chain's in float64, and the
+    pyramid."""
     from sage_slam_tpu_torch import synthetic
     from sage_slam_tpu_torch.config import MapperConfig
     from sage_slam_tpu_torch.ops import photometric
     from sage_slam_tpu_torch.solver import ba
     from sage_slam_tpu_torch.solver.graph import Variables
 
-    v, p, pyr = synthetic.bench_problem(device=dev)
+    v, p, pyr = synthetic.bench_problem(device=dev, k=k, cs=cs, n_photo=n_photo)
     p = ba.prepare_problem(p, pyr)
     gen = torch.Generator().manual_seed(7)
     v = Variables(v.pose, 0.1 * torch.randn(v.code.shape, generator=gen).to(dev),
@@ -303,3 +313,49 @@ def test_prep_kernel_is_deterministic(cuda):
     second = _bench_prep(cuda, True)[0]
     for a, b in zip(first, second):
         assert torch.equal(a, b)  # no atomics: every output written once by one thread
+
+
+@pytest.mark.parametrize("k,e", [(8, 24), (8, 48), (64, 372)], ids=["e24", "e48", "e372"])
+def test_wide_prep_and_k1_match_plain_chains(cuda, k, e):
+    """At CS = 32: the 32-code prep kernel against photometric.photo_prep,
+    held as test_prep_kernel_matches_plain_chain holds the 16-code one, and
+    the 48-wide K1 on the kernel's prep against photo_reduce_ref on it
+    (test_kernel_matches_plain's tolerances); one launch of each, and each
+    launch counts its instantiation's width in the span open around it."""
+    from sage_slam_tpu_torch.ops import photo_prep
+    from sage_slam_tpu_torch.utils import timing
+
+    before = photo_prep.photo_prep_edges.launches
+    timing.reset()
+    timing.enable(True)
+    with timing.span("probe"):
+        got, ref, exact, pyr = _bench_prep(cuda, True, cs=32, k=k, n_photo=e)
+        ratios = tuple((0.5**i, 0.5**i) for i in range(pyr.levels))
+        out = tred.photo_reduce(*got, WEIGHTS, ratios)
+    timing.enable(False)
+    (rec,) = [r for r in timing.records() if r.name == "probe"]
+    timing.reset()
+    assert photo_prep.photo_prep_edges.launches == before + 1
+    assert rec.counts == {"photo.prep_kernel": 1, "photo.prep_cs": 32, "photo.k1_pad": 48}
+    assert got[3].shape == (e, 45, 3072)
+    assert torch.equal(got[1], ref[1])
+    for name, a, b, tol in (("fgs", got[0], ref[0], 2e-4), ("gate", got[2], ref[2], 1e-4)):
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max()), name
+    for name, i in (("kx", 3), ("ky", 4)):
+        a, b, t = got[i], ref[i], exact[i]
+        assert torch.equal(torch.isnan(a), torch.isnan(b)), name
+        t = t.nan_to_num(0.0)
+        row_max = t.abs().amax(dim=2)
+        err_k = (a.double().nan_to_num(0.0) - t).abs().amax(dim=2)
+        err_p = (b.double().nan_to_num(0.0) - t).abs().amax(dim=2)
+        assert bool((err_k <= 8.0 * torch.maximum(err_p, 1e-7 * row_max)).all()), name
+    torch.cuda.synchronize()
+    ata, atb, err, n_inl = (x.double().cpu().numpy() for x in out)
+    ata_r, atb_r, err_r, n_r = (x.double().cpu().numpy()
+                                for x in tred.photo_reduce_ref(*got, WEIGHTS, ratios))
+    scale = float(np.abs(ata_r).max())
+    np.testing.assert_allclose(ata, ata_r, rtol=1e-4, atol=1e-6 * scale)
+    np.testing.assert_allclose(atb, atb_r, rtol=1e-4, atol=1e-6 * scale)
+    np.testing.assert_allclose(err, err_r, rtol=2e-5)
+    np.testing.assert_allclose(n_inl, n_r, rtol=1e-5)
+    np.testing.assert_array_equal(ata, np.swapaxes(ata, -1, -2))

@@ -364,8 +364,10 @@ def _check_case(case, tv, tp, tpyr):
     args = dict(rot=tv.pose.rot, trans=tv.pose.trans, code=tv.code, scale=tv.scale,
                 i0=tp.photo_edges.i0, i1=tp.photo_edges.i1, window=w)
     k, n = w.loc1d.shape
-    if case == "dim-over-29":
-        args["code"] = torch.zeros((k, 17))
+    if case == "dim-over-45":  # tables of a 33-entry code, consistent but over the widest kernel
+        hw = w.bias_flat.shape[1]
+        args["code"] = torch.zeros((k, 33))
+        args["window"] = w._replace(jac_flat=torch.zeros((k, hw, 33)), jac_at=torch.zeros((k, n, 33)))
     elif case == "levels-over-max":
         args["window"] = w._replace(src_feats=torch.zeros((k, tprep.MAX_LEVELS + 1, n, 16)))
     elif case == "float64-homo":
@@ -389,7 +391,7 @@ def _check_case(case, tv, tp, tpyr):
 
 
 @pytest.mark.parametrize("case,error", [
-    ("dim-over-29", ValueError), ("levels-over-max", ValueError), ("float64-homo", TypeError),
+    ("dim-over-45", ValueError), ("levels-over-max", ValueError), ("float64-homo", TypeError),
     ("int32-edges", TypeError), ("non-contiguous-table", ValueError),
     ("misaligned-table", ValueError), ("table-of-another-pyramid", ValueError),
     ("channels-not-multiple-of-4", ValueError), ("bias-without-jac", ValueError),
@@ -397,7 +399,7 @@ def _check_case(case, tv, tp, tpyr):
 ])
 def test_photo_prep_kernel_rejects_what_it_cannot_take(graft_case, case, error):
     """The kernel wrapper's checks, which run before any launch (so here,
-    without a card): the limits it shares with K1 (dim <= 29, L <=
+    without a card): the limits it shares with K1 (dim <= 45, L <=
     MAX_LEVELS), dtypes, contiguity, 16-byte alignment, shapes and a
     window without its pixel table."""
     *_, tv, tp, tpyr = graft_case

@@ -1,7 +1,8 @@
 """The host-side layout of the CUDA photometric reduce, on the CPU.
 
-The kernel writes the TPU kernel's padded product [E, 32, 32] (atb in
-column dim, err at [dim+1, dim+1], n_inl at [dim+1, dim+2]) and the
+The kernel writes the TPU kernel's padded product [E, P, P] (P = 32 up
+to dim 29, 48 up to dim 45; atb in column dim, err at [dim+1, dim+1],
+n_inl at [dim+1, dim+2]) and the
 wrapper returns views of it (``unpack_padded``); its grid walks the point
 tiles of each edge in ``num_splits`` runs (``split_ranges``). Here the
 padded product is built with plain torch exactly as the Pallas kernel
@@ -84,15 +85,16 @@ def _assert_reduce_close(out, ref, binary):
 
 @pytest.mark.parametrize(
     "shape,soft",
-    [((3, 4, 16, 512, 29), False), ((3, 4, 16, 512, 29), True), ((2, 3, 8, 1000, 17), True)],
-    ids=["pallas-shape-binary", "pallas-shape-soft", "ragged-dim17"],
+    [((3, 4, 16, 512, 29), False), ((3, 4, 16, 512, 29), True), ((2, 3, 8, 1000, 17), True),
+     ((3, 4, 16, 512, 45), True)],
+    ids=["pallas-shape-binary", "pallas-shape-soft", "ragged-dim17", "pallas-shape-dim45-soft"],
 )
 def test_unpacked_padded_product_matches_ref_and_pallas(shape, soft):
     e, lv, c, n, dim = shape
     ins = _rand_inputs(e, lv, c, n, dim, soft)
     ratios = tuple((0.5**i, 0.5**i) for i in range(lv))
     t_ins = [torch.from_numpy(x) for x in ins]
-    padded = _padded_product(*t_ins, WEIGHTS, ratios, tred.PAD)
+    padded = _padded_product(*t_ins, WEIGHTS, ratios, tred.pad_for(dim))
     unpacked = tred.unpack_padded(padded, dim)
     for view in unpacked:  # views of the one buffer, no copies
         assert view.untyped_storage().data_ptr() == padded.untyped_storage().data_ptr()
