@@ -243,7 +243,19 @@ Phases, each of which exits non-zero on failure:
    photo.prep_cs 32 (32 and 16 at CS = 16); K1 is held to its plain
    version and timed (cold and warm, against reduce_bound) on the cell's
    prep at both widths;
-15. a JSON line listing every kernel, then the card line, then the last
+15. the Hessian assembly kernel (solver/graph.scatter_hessian on the
+   card, csrc/hessian_assembly.cu): the five calls of one ba.linearize on
+   both cells' problems (cell_problem at CS = 16 and 32, phase 14's),
+   each held against the one-hot path (graph.scatter_hessian_ref, run on
+   the card) and a float64 index_add_ sum within ASSEMBLY_RTOL of max |H|;
+   two calls bitwise equal, H exactly symmetric, the linearization's own
+   H equal bitwise to the five calls replayed; run_ba on each cell counts
+   5 assembly.kernel an LM iteration. Times each call and the five
+   together (cold L2, warm beside) against a bytes bound (assembly_bound:
+   the valid edges' indices, blocks and vectors read once, the touched
+   tiles of H and rows of b read and written once, at the memory rate),
+   and the one-hot path beside;
+16. a JSON line listing every kernel, then the card line, then the last
    line ``{"ok": true, "device": {...}}``.
 
 K1's times (phases 5-13) are device times with a cold L2: a 96 MB scratch
@@ -3062,7 +3074,204 @@ def prep_path(dev, card: str, peaks) -> dict:
     secs = time.perf_counter() - t0
     say(f"phase 14 took {secs:.1f} s")
     return dict(worst=worst, times=times, k1=k1, run_ba_launches=counts[16]["launches"],
-                run_ba_launches_cs32=counts[32]["launches"], seconds=secs)
+                run_ba_launches_cs32=counts[32]["launches"], seconds=secs, cells=cells)
+
+
+# ---- 15. the Hessian assembly kernel (solver/graph, csrc/hessian_assembly.cu) ----
+
+# The kernel and the one-hot path sum the same float32 products in other
+# orders, and both against a float64 sum: each entry is a sum of at most a
+# few dozen blocks' entries, so both stay within a few float32 ulps of the
+# largest entry; a misplaced block reads of the order of max |H| itself.
+ASSEMBLY_RTOL = 1e-5  # of max |H| (and of max |b| for b)
+ASSEMBLY_CALLS = ("photo", "geo", "code prior", "scale prior", "pose prior")
+
+
+def assembly_calls(variables, problem, pyr, cfg):
+    """The scatter_hessian calls of one ba.linearize, their inputs kept (the
+    kernel writes only h and b) -> ([(gidx, ata, atb, valid, block_dim)],
+    H, b of the linearization)."""
+    from sage_slam_tpu_torch.solver import ba, graph
+
+    calls, real = [], graph.scatter_hessian
+
+    def spy(h, b, *args):
+        calls.append(args)
+        return real(h, b, *args)
+
+    graph.scatter_hessian = spy
+    try:
+        h, b, _ = ba.linearize(variables, problem, pyr, cfg)
+    finally:
+        graph.scatter_hessian = real
+    return calls, h, b
+
+
+def assembly_bound(calls, d: int, peak_bw: float):
+    """The kernel's least time for these calls: the valid edges' indices,
+    blocks and vectors read once, and once each read and written the tiles
+    of H and the rows of b that an edge touches, at the memory rate ->
+    (ms, bytes)."""
+    from sage_slam_tpu_torch.solver import graph
+
+    nbytes = 0
+    for gidx, ata, atb, valid, bd in calls:
+        live = valid != 0
+        g = gidx[live]
+        e, s = g.shape
+        nbytes += e * s * (8 + 4) + e * s * s * 4 + e * 4
+        t = graph.tile_width(bd)
+        inside = (g >= 0) & (g < d)
+        tiles = set()
+        for row, ok in zip((g // t).tolist(), inside.tolist()):
+            rows = {r for r, o in zip(row, ok) if o}
+            tiles |= {(a, c) for a in rows for c in rows}
+        for a, c in tiles:
+            nbytes += 2 * 4 * min(t, d - a * t) * min(t, d - c * t)
+            if a == c:
+                nbytes += 2 * 4 * min(t, d - a * t)
+    return nbytes / peak_bw * 1e3, nbytes
+
+
+def _index_add_sum(h, b, gidx, ata, atb, valid):
+    """float64 H and b with every edge's valid² · block and valid · vector
+    added entry by entry, on the card."""
+    d = h.shape[-1]
+    e, s = gidx.shape
+    keep = (gidx >= 0) & (gidx < d)
+    pair = keep[:, :, None] & keep[:, None, :]
+    v = valid.double()
+    hs = h.double().reshape(-1).clone()
+    hs.index_add_(0, (gidx[:, :, None] * d + gidx[:, None, :])[pair],
+                  (ata.double() * (v * v)[:, None, None]).expand(e, s, s)[pair])
+    bs = b.double().clone()
+    bs.index_add_(0, gidx[keep], (atb.double() * v[:, None]).expand(e, s)[keep])
+    return hs.reshape(d, d), bs
+
+
+def assembly_hold(calls, h_lin, b_lin, k: int, label: str) -> dict:
+    """Each call's kernel result against the one-hot path and the float64
+    sum, two calls bitwise equal, H exactly symmetric; the five replayed in
+    order equal bitwise to the linearization's H and b -> worst errors."""
+    from sage_slam_tpu_torch.solver import graph
+
+    d = h_lin.shape[0]
+    worst = dict(kernel=0.0, one_hot=0.0)
+    h_all, b_all = graph.empty_system(k, d // k, device=h_lin.device)
+    for name, (gidx, ata, atb, valid, bd) in zip(ASSEMBLY_CALLS, calls):
+        h0, b0 = graph.empty_system(k, bd, device=h_lin.device)
+        h1, b1 = graph.scatter_hessian(h0.clone(), b0.clone(), gidx, ata, atb, valid, bd)
+        h2, b2 = graph.scatter_hessian(h0.clone(), b0.clone(), gidx, ata, atb, valid, bd)
+        ho, bo = graph.scatter_hessian_ref(h0, b0, gidx, ata, atb, valid)
+        hr, br = _index_add_sum(h0, b0, gidx, ata, atb, valid)
+        torch.cuda.synchronize()
+        if not (torch.equal(h1, h2) and torch.equal(b1, b2)):
+            fail(f"assembly kernel at {label}, {name}: two calls on the same inputs differ")
+        if not torch.equal(h1, h1.T):
+            fail(f"assembly kernel at {label}, {name}: H is not exactly symmetric")
+        hs, bs = float(hr.abs().max()), max(float(br.abs().max()), 1e-30)
+        errs = dict(kernel=max(float((h1.double() - hr).abs().max()) / hs,
+                               float((b1.double() - br).abs().max()) / bs),
+                    one_hot=max(float((ho.double() - hr).abs().max()) / hs,
+                                float((bo.double() - br).abs().max()) / bs))
+        e, s = gidx.shape
+        say(f"assembly kernel at {label}, {name} (E={e}, S={s}, D={d}, tile {graph.tile_width(bd)}): "
+            f"max error over max |H| against float64 {errs['kernel']:.3g} (the one-hot path "
+            f"{errs['one_hot']:.3g}); two calls bit-equal, H exactly symmetric: ok")
+        if errs["kernel"] > ASSEMBLY_RTOL:
+            fail(f"assembly kernel at {label}, {name}: error {errs['kernel']:.3g} over {ASSEMBLY_RTOL}")
+        worst = {key: max(worst[key], val) for key, val in errs.items()}
+        h_all, b_all = graph.scatter_hessian(h_all, b_all, gidx, ata, atb, valid, bd)
+    if not (torch.equal(h_all, h_lin) and torch.equal(b_all, b_lin)):
+        fail(f"assembly kernel at {label}: the five calls replayed differ from the linearization's H, b")
+    if not torch.equal(h_lin, h_lin.T):
+        fail(f"assembly kernel at {label}: the linearization's H is not exactly symmetric")
+    return worst
+
+
+def assembly_counts(variables, problem, pyr, cfg, mask, label: str) -> int:
+    """run_ba with utils/timing recording: every graph.scatter_hessian span
+    counts one assembly.kernel, five an LM iteration -> kernel calls."""
+    from sage_slam_tpu_torch.solver import ba, graph
+    from sage_slam_tpu_torch.utils import timing
+
+    timing.reset()
+    timing.enable(True)
+    before = graph._scatter_kernel.calls
+    _, _, iters, _ = ba.run_ba(variables, problem, pyr, cfg, mask, cfg.max_gn_iters)
+    timing.enable(False)
+    calls = graph._scatter_kernel.calls - before
+    spans = [r for r in timing.records() if r.name == "graph.scatter_hessian"]
+    timing.reset()
+    counted = sum(r.counts.get("assembly.kernel", 0) for r in spans)
+    say(f"assembly kernel on {label}: run_ba {iters} LM iterations, {len(spans)} scatter_hessian "
+        f"spans, assembly.kernel counted {counted}, kernel calls {calls}")
+    if not calls == counted == len(spans) == 5 * iters:
+        fail(f"run_ba on {label}: {calls} assembly calls, {counted} counted, {len(spans)} spans for "
+             f"{iters} LM iterations (expected 5 each)")
+    return calls
+
+
+def assembly_times(calls, k: int, card: str, peak_bw: float, label: str) -> dict:
+    """The kernel timed per call and over the five together (cold L2, warm
+    beside) against assembly_bound, the one-hot path beside. Calls made
+    here are not counted."""
+    from sage_slam_tpu_torch.solver import graph
+
+    saved = graph._scatter_kernel.calls
+    d = k * calls[0][4]
+    dev = calls[0][0].device
+    h, b = graph.empty_system(k, calls[0][4], device=dev)
+    reps = 20
+
+    def kernel(group):
+        def run():
+            for gidx, ata, atb, valid, bd in group:
+                graph.scatter_hessian(h, b, gidx, ata, atb, valid, bd)
+        return run
+
+    def one_hot(group):
+        def run():
+            for gidx, ata, atb, valid, _ in group:
+                graph.scatter_hessian_ref(h, b, gidx, ata, atb, valid)
+        return run
+
+    out = {}
+    for name, group in [*((n, [c]) for n, c in zip(ASSEMBLY_CALLS, calls)), ("all five", calls)]:
+        bound_ms, nbytes = assembly_bound(group, d, peak_bw)
+        t = dict(ms=device_ms(kernel(group), reps, "assembly_", cold=True),
+                 warm_ms=device_ms(kernel(group), reps, "assembly_"),
+                 plain_ms=device_ms(one_hot(group), reps, cold=True),
+                 warm_plain_ms=device_ms(one_hot(group), reps), bound_ms=bound_ms, bytes=nbytes)
+        say(f"time [{card}] assembly kernel at {label}, {name}: device cold L2 {t['ms']:.6f} ms "
+            f"({bound_ms / t['ms']:.1%} of its bound {bound_ms:.6f} ms, {nbytes / 1e6:.2f} MB), warm "
+            f"{t['warm_ms']:.6f} ms ({bound_ms / t['warm_ms']:.1%}); the one-hot path cold "
+            f"{t['plain_ms']:.4f} ms, warm {t['warm_plain_ms']:.4f} ms")
+        out[name] = t
+    graph._scatter_kernel.calls = saved
+    return out
+
+
+def assembly_path(dev, card: str, peaks, cells=None) -> dict:
+    """Phase 15: the Hessian assembly kernel on both cells' problems (see
+    the module note); ``cells`` as phase 14 built them, else built here."""
+    t0 = time.perf_counter()
+    if cells is None:
+        cells = {cs: cell_problem(dev, code_size=cs) for cs in (16, 32)}
+    worst, times, counts = {}, {}, {}
+    for cs, (variables, problem, mask, pyr, scfg) in cells.items():
+        label = f"the CS={cs} cell's problem"
+        calls, h_lin, b_lin = assembly_calls(variables, problem, pyr, scfg.mapper)
+        if len(calls) != len(ASSEMBLY_CALLS):
+            fail(f"ba.linearize on {label} made {len(calls)} scatter_hessian calls, expected 5")
+        k = variables.num_kf
+        for key, val in assembly_hold(calls, h_lin, b_lin, k, label).items():
+            worst[key] = max(worst.get(key, 0.0), val)
+        counts[f"CS={cs}"] = assembly_counts(variables, problem, pyr, scfg.mapper, mask, label)
+        times[f"CS={cs}"] = assembly_times(calls, k, card, peaks[0], label)
+    secs = time.perf_counter() - t0
+    say(f"phase 15 took {secs:.1f} s")
+    return dict(worst=worst, times=times, run_ba_calls=counts, seconds=secs)
 
 
 def main() -> None:
@@ -3082,7 +3291,7 @@ def main() -> None:
     from sage_slam_tpu_torch.ops import photo_prep as pp
     from sage_slam_tpu_torch.ops import photo_reduce as pr
     from sage_slam_tpu_torch.ops import photometric
-    from sage_slam_tpu_torch.solver import ba
+    from sage_slam_tpu_torch.solver import ba, graph
 
     dev = torch.device("cuda", 0)
     conf = os.path.join(ROOT, "sage_slam_tpu_torch", "_build", "kineto.conf")
@@ -3326,7 +3535,10 @@ def main() -> None:
     # ---- 14. the prep kernel ----
     prepped = prep_path(dev, card, (peak_bw, peak_flops))
 
-    # ---- 15. result ----
+    # ---- 15. the Hessian assembly kernel ----
+    assembled = assembly_path(dev, card, (peak_bw, peak_flops), prepped.pop("cells"))
+
+    # ---- 16. result ----
     kernels = [{
         "name": "photo_reduce",
         "route": "cuda",
@@ -3384,6 +3596,17 @@ def main() -> None:
         "bench_shape_cs32": prepped["times"]["bench_cs32"],
         "cell_shape_cs32": prepped["times"]["cell_cs32"],
         "run_ba_launches_at_the_cs32_cell": prepped["run_ba_launches_cs32"],
+    }, {
+        "name": "hessian_assembly",
+        "route": "cuda",
+        "source": "sage_slam_tpu_torch/ops/csrc/hessian_assembly.cu",
+        "replaces": None,
+        "calls": graph._scatter_kernel.calls,
+        "run_ba_calls_at_the_cells": assembled["run_ba_calls"],
+        "matched": True,
+        "max_rel_err": assembled["worst"],
+        "timing": "device time, cold L2 (a 96 MB scratch buffer read three times before each call)",
+        "cell_shapes": assembled["times"],
     }]
     if old_ms is not None:
         kernels[0]["earlier_ms"] = old_ms

@@ -4,7 +4,9 @@ Each library is built from its sources under ``ops/csrc/`` by one nvcc
 call, has a plain C interface and is loaded with ctypes: ``photometric``
 holds K1 (photo_reduce.cu, at padded widths 32 and 48) and the prep kernel
 (photo_prep.cu, at code widths 16 and 32), every instantiation compiled
-by that one call. Libraries
+by that one call; ``assembly`` holds the Hessian assembly
+(hessian_assembly.cu). The first load builds every library not yet built,
+one nvcc each, all at once. Libraries
 go to ``_build/`` beside this file (listed in .gitignore), named by the
 hash of their sources and the flags, so an edited source is rebuilt and
 an unchanged one is not. A build
@@ -26,7 +28,7 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent / "ops" / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = {"photometric": ("photo_reduce.cu", "photo_prep.cu")}
+SOURCES = {"photometric": ("photo_reduce.cu", "photo_prep.cu"), "assembly": ("hessian_assembly.cu",)}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -91,8 +93,9 @@ def build(names=None) -> dict:
 
 @functools.cache
 def load_library(name: str) -> ctypes.CDLL:
-    """One built library, building it first if needed."""
+    """One built library, building it and every other library not yet built
+    first if needed."""
     path = library_path(name)
     if not path.exists():
-        build([name])
+        build()
     return ctypes.CDLL(str(path))

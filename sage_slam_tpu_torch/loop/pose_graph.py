@@ -98,16 +98,16 @@ def linearize(variables: Variables, edges: PoseScaleEdges, pr: PoseScalePriors, 
         graph.slot_indices(edges.i0, bd, sel_pose), graph.slot_indices(edges.i1, bd, sel_pose),
         graph.slot_indices(edges.i0, bd, sel_scale), graph.slot_indices(edges.i1, bd, sel_scale),
     ], dim=-1)  # [E, 14]
-    h, b = graph.scatter_hessian(h, b, gidx, ata, atb, edges.valid)
+    h, b = graph.scatter_hessian(h, b, gidx, ata, atb, edges.valid, bd)
     total = total + torch.sum(err * edges.valid)
 
     kf_range = torch.arange(k, device=dev)
     (ata_p, atb_p, err_p), (ata_s, atb_s, err_s) = _prior_errors(variables, pr)
     h, b = graph.scatter_hessian(h, b, graph.slot_indices(kf_range, bd, sel_pose), ata_p, atb_p,
-                                 pr.pose_valid)
+                                 pr.pose_valid, bd)
     total = total + torch.sum(err_p * pr.pose_valid)
     h, b = graph.scatter_hessian(h, b, graph.slot_indices(kf_range, bd, sel_scale), ata_s, atb_s,
-                                 pr.scale_valid)
+                                 pr.scale_valid, bd)
     total = total + torch.sum(err_s * pr.scale_valid)
     return h, b, total
 

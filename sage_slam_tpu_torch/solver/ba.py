@@ -366,7 +366,7 @@ def linearize(
                 ],
                 dim=-1,
             )  # [E, 13+CS]
-            h, b = graph.scatter_hessian(h, b, gidx, ata, atb, pe.valid)
+            h, b = graph.scatter_hessian(h, b, gidx, ata, atb, pe.valid, bd)
             total_err = total_err + torch.sum(err * pe.valid)
 
     # ---- geometric edges: vars (p0, p1, c0, c1, s0, s1), dim 14+2CS ----
@@ -398,7 +398,7 @@ def linearize(
                 ],
                 dim=-1,
             )  # [E, 14+2CS]
-            h, b = graph.scatter_hessian(h, b, gidx, ata, atb, ge.valid)
+            h, b = graph.scatter_hessian(h, b, gidx, ata, atb, ge.valid, bd)
             total_err = total_err + torch.sum(err * ge.valid)
 
     # ---- reprojection edges: vars (p0, p1, c0, s0), dim 13+CS ----
@@ -419,7 +419,7 @@ def linearize(
                 ],
                 dim=-1,
             )
-            h, b = graph.scatter_hessian(h, b, gidx, ata, atb, re.valid)
+            h, b = graph.scatter_hessian(h, b, gidx, ata, atb, re.valid, bd)
             total_err = total_err + torch.sum(err * re.valid)
 
     # ---- priors ----
@@ -430,7 +430,7 @@ def linearize(
             variables.code, torch.zeros_like(variables.code), cfg.code_factor_weight
         )
         h, b = graph.scatter_hessian(
-            h, b, graph.slot_indices(kf_range, bd, sel_code), ata_c, atb_c, pr.code_valid
+            h, b, graph.slot_indices(kf_range, bd, sel_code), ata_c, atb_c, pr.code_valid, bd
         )
         total_err = total_err + torch.sum(err_c * pr.code_valid)
 
@@ -438,7 +438,7 @@ def linearize(
             variables.scale, pr.scale_init, cfg.init_scale_prior_weight
         )
         h, b = graph.scatter_hessian(
-            h, b, graph.slot_indices(kf_range, bd, sel_scale), ata_s, atb_s, pr.scale_valid
+            h, b, graph.slot_indices(kf_range, bd, sel_scale), ata_s, atb_s, pr.scale_valid, bd
         )
         total_err = total_err + torch.sum(err_s * pr.scale_valid)
 
@@ -446,7 +446,7 @@ def linearize(
             variables.pose, pr.pose_target, cfg.init_pose_prior_weight
         )
         h, b = graph.scatter_hessian(
-            h, b, graph.slot_indices(kf_range, bd, sel_pose), ata_p, atb_p, pr.pose_valid
+            h, b, graph.slot_indices(kf_range, bd, sel_pose), ata_p, atb_p, pr.pose_valid, bd
         )
         total_err = total_err + torch.sum(err_p * pr.pose_valid)
     return h, b, total_err

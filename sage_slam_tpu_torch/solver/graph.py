@@ -6,12 +6,15 @@ Per-keyframe variable block (dim 7 + CS):
   [6:6+CS] depth code, [6+CS] scale.
 
 Edge blocks are scatter-added into one dense block Hessian over the window
-and solved with a damped Cholesky, either whole ("dense") or by first
+(on the card by one hand-written kernel, csrc/hessian_assembly.cu) and
+solved with a damped Cholesky, either whole ("dense") or by first
 eliminating every keyframe's code and scale block ("schur").
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -74,18 +77,38 @@ def scatter_hessian(
     ata: torch.Tensor,  # [E, S, S]
     atb: torch.Tensor,  # [E, S]
     valid: torch.Tensor,  # [E] 0/1
+    block_dim: int,  # the keyframe block width: the kernel's tiles follow it
 ):
-    """Accumulate per-edge Hessian blocks: H += P^T (A P), b += P^T atb,
-    with the one-hot selection P [E*S, D] zeroed for invalid edges.
+    """Accumulate per-edge Hessian blocks -> (h, b): each edge adds
+    valid² · ata into H at (gidx, gidx) and valid · atb into b at gidx;
+    slots of one edge that repeat a global index are all summed, an index
+    outside [0, D) places nothing, and an edge with valid 0 is skipped.
+    The ``entries`` count of the span is E·S·S, the entries placed.
 
-    Kept as float32 matmuls, as in the JAX package: deterministic on the
-    card (index_put_ with accumulate=True would sum with atomics in a
-    run-dependent order). Each output entry sums the same products as a
-    scatter-add; the order of that sum differs from the JAX package's, so
-    comparisons use float32-roundoff tolerances."""
+    On CUDA tensors one hand-written kernel does it (csrc/hessian_assembly.cu,
+    ``_scatter_kernel``): it updates h and b in place and returns them,
+    with a fixed summation order and no atomics, so two calls on the same
+    inputs give bitwise-equal results, and H comes out exactly symmetric
+    when h and every block are. On the CPU the plain version,
+    ``scatter_hessian_ref``, returns new tensors. Callers use the pair
+    returned."""
+    e, s = gidx.shape
+    timing.count("entries", e * s * s)
+    if h.device.type == "cuda":
+        return _scatter_kernel(h, b, gidx, ata, atb, valid, block_dim)
+    return scatter_hessian_ref(h, b, gidx, ata, atb, valid)
+
+
+def scatter_hessian_ref(h, b, gidx, ata, atb, valid):
+    """The plain assembly: H += P^T (A P), b += P^T atb, with the one-hot
+    selection P [E*S, D] scaled by valid, as float32 matmuls, as in the JAX
+    package. Each output entry sums the same products as a scatter-add; the
+    order of that sum differs from the JAX package's, so comparisons use
+    float32-roundoff tolerances. A NaN in an edge's block spreads over the
+    rows and columns it meets (0 · NaN), where the kernel keeps it to its
+    own entries."""
     d = h.shape[-1]
     e, s = gidx.shape
-    timing.count("entries", e * s * d)
     cols = torch.arange(d, dtype=gidx.dtype, device=gidx.device)
     p = (gidx[..., None] == cols).to(h.dtype) * valid.to(h.dtype)[:, None, None]
     pf = p.reshape(e * s, d)
@@ -93,6 +116,84 @@ def scatter_hessian(
     h = h + pf.T @ bmat.reshape(e * s, d)
     b = b + pf.T @ atb.reshape(e * s)
     return h, b
+
+
+MAX_TILE = 64  # csrc/hessian_assembly.cu kMaxTile
+
+
+def tile_width(block_dim: int) -> int:
+    """The kernel's tile width for keyframe blocks of ``block_dim``: the
+    block itself, or as many whole blocks as fit in 32 for narrow ones, at
+    most MAX_TILE, so an edge between two keyframes touches 2 x 2 tiles."""
+    if block_dim < 1:
+        raise ValueError(f"block_dim={block_dim}; expected at least 1")
+    if block_dim <= 32:
+        return block_dim * (32 // block_dim)
+    return min(block_dim, MAX_TILE)
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """The built assembly library with its C signatures declared."""
+    from .._build import load_library
+
+    lib = load_library("assembly")
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.assembly_launch.argtypes = ([ptr, ptr, ptr, i64, i64, ptr, i64, i64, i64, ptr, i64, i64,
+                                     ptr, i64, ptr, i32, i32, i64, i32, ptr])
+    lib.assembly_launch.restype = i32
+    lib.assembly_error_string.argtypes = [i32]
+    lib.assembly_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _scatter_kernel(h, b, gidx, ata, atb, valid, block_dim):
+    """The card's assembly: two launches (the plan and the tile pass), no
+    host read; checked first. Each call adds 1 to the ``assembly.kernel``
+    count of the span open around it and to ``_scatter_kernel.calls``; an
+    empty edge set launches nothing."""
+    dev = h.device
+    if dev.index != torch.cuda.current_device():  # the C launcher uses the current card
+        with torch.cuda.device(dev):
+            return _scatter_kernel(h, b, gidx, ata, atb, valid, block_dim)
+    d = h.shape[-1]
+    e, s = gidx.shape
+    tile = tile_width(block_dim)
+    named = {"h": h, "b": b, "gidx": gidx, "ata": ata, "atb": atb, "valid": valid}
+    for name, t in named.items():
+        if t.device != dev:
+            raise ValueError(f"hessian assembly kernel: {name} is on {t.device}, h on {dev}")
+        want = torch.int64 if name == "gidx" else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"hessian assembly kernel: {name} is {t.dtype}, expected {want}")
+    if h.shape != (d, d) or b.shape != (d,) or ata.shape != (e, s, s) or atb.shape != (e, s) \
+            or valid.shape != (e,):
+        raise ValueError(f"hessian assembly kernel: shapes h {tuple(h.shape)}, b {tuple(b.shape)}, "
+                         f"gidx {tuple(gidx.shape)}, ata {tuple(ata.shape)}, atb {tuple(atb.shape)}, "
+                         f"valid {tuple(valid.shape)}")
+    if not (h.is_contiguous() and b.is_contiguous()):
+        raise ValueError("hessian assembly kernel: h and b are updated in place and must be contiguous")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in named.values()):
+        raise ValueError("hessian assembly kernel: an input carries an autograd graph; the kernel "
+                         "has no backward")
+    if e == 0 or s == 0:
+        return h, b
+    rows = torch.empty(-(-d // tile) * -(-e // 32), dtype=torch.int32, device=dev)
+    lib = _library()
+    status = lib.assembly_launch(
+        h.data_ptr(), b.data_ptr(), gidx.data_ptr(), *gidx.stride(), ata.data_ptr(), *ata.stride(),
+        atb.data_ptr(), *atb.stride(), valid.data_ptr(), valid.stride(0), rows.data_ptr(), e, s, d,
+        tile, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if status != 0:
+        raise RuntimeError(f"hessian assembly kernel launch failed: CUDA error {status} "
+                           f"({lib.assembly_error_string(status).decode()})")
+    _scatter_kernel.calls += 1
+    timing.count("assembly.kernel", 1)
+    return h, b
+
+
+_scatter_kernel.calls = 0
 
 
 def empty_system(num_kf: int, block_dim: int, dtype=torch.float32, device=None):

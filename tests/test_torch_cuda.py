@@ -1,5 +1,6 @@
-"""The CUDA photometric reduce against its plain version, and the mapper
-slice on the card against the same calls on the CPU.
+"""The CUDA photometric reduce against its plain version, the mapper
+slice on the card against the same calls on the CPU, and the Hessian
+assembly kernel against the one-hot path and a float64 sum.
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside the
 fixture, never at import). Run on a machine with an H100 and nvcc:
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 from sage_slam_tpu_torch.ops import photo_reduce as tred
+from tests.test_torch_assembly import VARIANTS, assembly_case, index_add_sum, variant_case
 
 pytestmark = pytest.mark.cuda
 
@@ -359,3 +361,136 @@ def test_wide_prep_and_k1_match_plain_chains(cuda, k, e):
     np.testing.assert_allclose(err, err_r, rtol=2e-5)
     np.testing.assert_allclose(n_inl, n_r, rtol=1e-5)
     np.testing.assert_array_equal(ata, np.swapaxes(ata, -1, -2))
+
+
+# ---- the Hessian assembly kernel (csrc/hessian_assembly.cu) ----
+
+
+def _on(dev, case):
+    return tuple(t.to(dev) if isinstance(t, torch.Tensor) else t for t in case)
+
+
+def _card_assembly(case):
+    """One kernel call on copies of h and b -> (H, b, span counts)."""
+    from sage_slam_tpu_torch.solver import graph
+    from sage_slam_tpu_torch.utils import timing
+
+    h, b, gidx, ata, atb, valid, bd = case
+    timing.reset()
+    timing.enable(True)
+    try:
+        out = graph.scatter_hessian(h.clone(), b.clone(), gidx, ata, atb, valid, bd)
+        torch.cuda.synchronize()
+    finally:
+        timing.enable(False)
+    (rec,) = timing.records()
+    timing.reset()
+    return out[0], out[1], rec.counts
+
+
+ASSEMBLY_CASES = {
+    "cell16_photo": (64, 16, "photo"), "cell16_geo": (64, 16, "geo"),
+    "cell32_photo": (64, 32, "photo"), "cell32_geo": (64, 32, "geo"),
+    "prior_code32": (64, 32, "prior_code"), "prior_code16": (64, 16, "prior_code"),
+    "prior_pose": (64, 16, "prior_pose"), "prior_scale": (64, 16, "prior_scale"),
+    "pose_graph": (40, 0, "pose_graph"), "store256_pose_graph": (256, 0, "pose_graph"),
+    "random_pairs": (9, 4, "geo"),
+}
+
+
+@pytest.mark.parametrize("name", list(ASSEMBLY_CASES))
+def test_assembly_kernel_matches_one_hot_and_index_add(cuda, name):
+    """The kernel against the plain one-hot path (on the CPU) and the
+    float64 index_add_ sum, to float32 roundoff, at the cells' shapes
+    (E=372: S=29 / 46 at D=1,472 and S=45 / 78 at D=2,496), the priors
+    (E=K=64, S=32, 16, 6, 1), the pose graph (block width 7, S=14) and
+    random pairs; H exactly symmetric, one assembly.kernel count and E·S·S
+    entries in the span, and two calls bitwise equal."""
+    from sage_slam_tpu_torch.solver import graph
+
+    k, cs, kind = ASSEMBLY_CASES[name]
+    cpu = assembly_case(k, cs, kind, e=30 if name == "random_pairs" else 0, seed=len(name))
+    case = _on(cuda, cpu)
+    before = graph._scatter_kernel.calls
+    h, b, counts = _card_assembly(case)
+    e, s = cpu[2].shape
+    if name.startswith("cell"):
+        assert (e, s, h.shape[0]) == (372, 13 + cs if kind == "photo" else 14 + 2 * cs, 64 * (7 + cs))
+    assert counts == {"entries": e * s * s, "assembly.kernel": 1}
+    assert graph._scatter_kernel.calls == before + 1
+    want_h, want_b = index_add_sum(*cpu[:6])
+    one_h, one_b = graph.scatter_hessian_ref(*cpu[:6])
+    scale = float(want_h.abs().max())
+    for got, want in ((h, want_h), (one_h, want_h), (b, want_b), (one_b, want_b)):
+        torch.testing.assert_close(got.cpu().double(), want, rtol=1e-5, atol=1e-6 * scale)
+    torch.testing.assert_close(h.cpu(), one_h, rtol=1e-5, atol=1e-6 * scale)
+    assert torch.equal(h, h.T)
+    h2, b2, _ = _card_assembly(case)
+    assert torch.equal(h, h2) and torch.equal(b, b2)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_assembly_kernel_edge_cases(cuda, variant):
+    """E=0 (no launch, no count), every edge invalid (H and b untouched),
+    an edge whose slots repeat a global index (all summed), accumulation
+    onto a non-zero symmetric h (in place, still exactly symmetric),
+    valid² weighting, indices outside [0, D) and a block wider than a tile
+    (block width 70, tiles of 64), each against the float64 sum."""
+    from sage_slam_tpu_torch.solver import graph
+
+    cpu = variant_case(variant)
+    h, b, gidx = cpu[:3]
+    case = _on(cuda, cpu)
+    before = graph._scatter_kernel.calls
+    out_h, out_b = graph.scatter_hessian(*case)
+    torch.cuda.synchronize()
+    assert graph._scatter_kernel.calls == before + (gidx.shape[0] > 0)
+    assert out_h.data_ptr() == case[0].data_ptr()  # in place
+    want_h, want_b = index_add_sum(*cpu[:6])
+    scale = max(float(want_h.abs().max()), 1.0)
+    torch.testing.assert_close(out_h.cpu().double(), want_h, rtol=1e-5, atol=1e-6 * scale)
+    torch.testing.assert_close(out_b.cpu().double(), want_b, rtol=1e-5, atol=1e-6 * scale)
+    if variant in ("no_edges", "all_invalid"):
+        assert torch.equal(out_h.cpu(), h) and torch.equal(out_b.cpu(), b)
+    assert torch.equal(out_h, out_h.T)
+
+
+def test_assembly_kernel_launches_two_kernels_without_a_host_read(cuda):
+    """One call at the CS=32 cell's geometric shape: two kernels in the
+    profile (the plan and the tile pass), and nothing that synchronizes
+    with the host (torch's sync debug mode raises on such a call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sage_slam_tpu_torch.solver import graph
+
+    case = _on(cuda, assembly_case(64, 32, "geo"))
+    graph.scatter_hessian(*case)  # builds and loads the library
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            graph.scatter_hessian(*case)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    counts = {e.key: e.count for e in prof.key_averages()
+              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA}
+    assert len(counts) == 2 and all(c == 1 for c in counts.values()), counts
+    for kernel in ("assembly_plan", "assembly_tiles"):
+        assert sum(kernel in name for name in counts) == 1, counts
+
+
+def test_assembly_kernel_refuses_what_it_cannot_take(cuda):
+    from sage_slam_tpu_torch.solver import graph
+
+    h, b, gidx, ata, atb, valid, bd = _on(cuda, assembly_case(8, 4, "photo", e=10))
+    with pytest.raises(TypeError):
+        graph.scatter_hessian(h.double(), b, gidx, ata, atb, valid, bd)
+    with pytest.raises(TypeError):
+        graph.scatter_hessian(h, b, gidx.int(), ata, atb, valid, bd)
+    with pytest.raises(ValueError):  # updated in place: h must be contiguous
+        graph.scatter_hessian(h.T, b, gidx, ata, atb, valid, bd)
+    with pytest.raises(ValueError):
+        graph.scatter_hessian(h, b, gidx, ata[:, :1], atb, valid, bd)
+    with pytest.raises(ValueError):  # no backward
+        graph.scatter_hessian(h, b, gidx, ata.clone().requires_grad_(), atb, valid, bd)

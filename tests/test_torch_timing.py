@@ -292,11 +292,11 @@ def test_run_ba_spans_under_the_cpu_profiler(tmp_path):
             assert [k.name for k in kids[block.id]] == BLOCK_KIDS[block.name]
         assert [k.counts.get("edges") for k in kids[lin.id]] == [6, 6, None, None]
         assert kids[it.id][1].counts == {"lm.host_reads": 1}
-    bd = 7 + 4
     entries = Counter()
     for r in recs:
         entries.update(r.counts)
-    assert entries["entries"] == iters * (6 * (13 + 4) + 6 * (14 + 8) + 4 * (4 + 1 + 6)) * 4 * bd
+    # E·S·S entries placed: photo S=17, geo S=22, the code, scale and pose priors of 4 keyframes
+    assert entries["entries"] == iters * (6 * (13 + 4) ** 2 + 6 * (14 + 8) ** 2 + 4 * (4**2 + 1 + 6**2))
     assert entries["lm.host_reads"] == iters + 1
 
     _, events = chrome_trace(prof, tmp_path)
