@@ -176,26 +176,19 @@ Phases, each of which exits non-zero on failure:
    TPU run's keyframe ATE; K1's launches equal grad_report's
    linearizations plus the walk's LM iterations; K1 held and timed at the
    full graph;
-12. the default-off paths and multi-device BA. (a) The mega tables
-   (photometric.USE_MEGA_TABLES) at the bench point: linearize held to the
-   per-level tables' (H, b) at rtol 1e-5 + atol 1e-6 max|H|, the error at
-   1e-6 relative; a 10-iteration run_ba with them against the same call
-   without (equal iterations, the error at 1e-6 relative or 1e-7 of the
-   start's); K1's launches equal the LM iterations; one lm_track at
-   SlamConfig() widths with and without them (6 iterations, the frames
-   being equal, poses 1e-5, error rtol 1e-4); ms per step of each layout,
-   in turns. (b) run_ba with solver="schur" against "dense" at the bench
+12. the default-off paths and multi-device BA. (a) run_ba with
+   solver="schur" against "dense" at the bench
    point (error rtol 1e-5; translations and codes rtol 1e-4 + atol 1e-6),
    and solver="auto" on synthetic.bench_problem(k=48, 96+96 ring edges),
    which must take the Schur branch (ATOL_48 on translations and codes);
-   ms per step of each solver. (c) Mapper.mapping_step(mesh=) on a
+   ms per step of each solver. (b) Mapper.mapping_step(mesh=) on a
    one-rank NCCL group (parallel/launch.one_rank) on clones of phase 6's
    mapper (the 256-keyframe store: a 5888-wide system) against the
    unsharded mapping_step from the same state (error rtol 1e-4; poses,
    codes and scales atol 1e-5; the same iterations and edge budgets),
    windowed and with refine_mapping's coarse photo_weights (full=True),
    which the JAX package refuses; K1's launches equal the step's LM
-   iterations; ms per sharded and unsharded step. (d) two gloo ranks on
+   iterations; ms per sharded and unsharded step. (c) two gloo ranks on
    the one card (parallel/launch.spawn): sharded_run_ba and
    sharded_window_run_ba at the bench point, each rank 12 of the 24 edges
    per family and half the keyframe rows, against one process's run_ba /
@@ -204,8 +197,8 @@ Phases, each of which exits non-zero on failure:
    bit-equal, each rank's K1 launches equal to the LM iterations; prints
    each rank's store-table bytes beside store_bytes_per_device.
    K1 is held
-   and timed at E=24 (mega prep inputs), at phase 6's window under the
-   mesh path and at one rank's E=12. Prints the phase's time;
+   and timed at phase 6's window under the mesh path and at one rank's
+   E=12. Prints the phase's time;
 13. the measuring programs: each program's main run in this process on
    the card at its JAX program's operating point, its output echoed:
    entry (entry()'s step and dryrun_multichip(1), whose two dryruns with
@@ -774,8 +767,9 @@ def mapper_path(dev, card: str, peaks) -> dict:
     frame_diff = {
         name: rel_diff(getattr(fr_g, name), getattr(fr_c, name))
         for name in ("bias_flat", "jac_flat", "feat_pyr", "grad_pyr", "feat_desc_flat",
-                     "src_feats", "packed_fg", "avg_sq_bias")
+                     "src_feats", "avg_sq_bias")
     }
+    frame_diff["packed_fg"] = rel_diff(fr_g.tables.packed_fg, fr_c.tables.packed_fg)
     # cuDNN's float32 convolution algorithms against the CPU's, through 22
     # partial-conv layers: 1e-3 of each tensor's max |value|
     if max(frame_diff.values()) > 1e-3:
@@ -1250,9 +1244,9 @@ DEMO_RUN_DIR = "_runs/demo"
 # KeyframeConfig fields relaxed where the random networks make fewer than 2
 # keyframes by their own ratios (K1 would never launch); empty: none relaxed
 DEMO_KEYFRAME_RELAXED: dict = {}
-# the store's rows in a checkpoint and the tables load_state rebuilds
+# the store's rows in a checkpoint; load_state rebuilds src_feats and the
+# store's FrameTables from them
 STORE_ROWS = ("loc1d", "homo", "bias_flat", "jac_flat", "feat_pyr", "grad_pyr", "feat_desc", "avg_sq_bias")
-STORE_TABLES = ("src_feats", "packed_fg", "packed_feat", "bias_at", "jac_at")
 
 
 def check_tum(path: str, trajectory, label: str) -> None:
@@ -1303,9 +1297,11 @@ def hold_resume(system, path: str, dev) -> str:
     pairs = [(f"variables.{k}", x, y) for k, x, y in zip(
         ("rot", "trans", "code", "scale"), (*a.variables.pose, a.variables.code, a.variables.scale),
         (*b.variables.pose, b.variables.code, b.variables.scale))]
-    pairs += [(k, getattr(a, k), getattr(b, k)) for k in STORE_ROWS + STORE_TABLES]
-    pairs += [(f"{k}[{i}]", x, y) for k in ("dense_fg", "dense_feat")
-              for i, (x, y) in enumerate(zip(getattr(a, k), getattr(b, k)))]
+    if a.tables is None or b.tables is None:
+        fail("save/resume: a store without its tables")
+    pairs += [(k, getattr(a, k), getattr(b, k)) for k in STORE_ROWS + ("src_feats",)]
+    ta, tb = a.tables.leaves(), b.tables.leaves()
+    pairs += [(f"tables[{i}]", x, y) for i, ((x, _), (y, _)) in enumerate(zip(ta, tb))]
     differ = [k for k, x, y in pairs if not torch.equal(x, y)]
     host = dict(num_active=(a.num_active, b.num_active), timestamps=(a.timestamps, b.timestamps),
                 links=(a.links, b.links), loops=(a.global_loop_links, b.global_loop_links),
@@ -1315,7 +1311,7 @@ def hold_resume(system, path: str, dev) -> str:
                 photo_iters=(m.photo_edge_iters, fresh.mapper.photo_edge_iters),
                 geo_iters=(m.geo_edge_iters, fresh.mapper.geo_edge_iters))
     differ += [k for k, (x, y) in host.items() if x != y]
-    if differ or len(a.dense_fg) != len(b.dense_fg) or a.packed_fg is None:
+    if differ or len(ta) != len(tb):
         fail(f"save/resume: the resumed store differs from the saved one in {differ}")
     err_a = m.mapping_step()
     it_a = m.last_step_iters
@@ -2166,8 +2162,7 @@ def eval_path(dev, card: str, peaks) -> dict:
                 make_eval_shape=k1["shape"], gt_probe_shape=probe["shape"], tsdf=volume)
 
 
-# phase 12: the default-off paths and multi-device BA. Tolerances: the
-# mega path test_mega_photometric_path_matches_plain's; Schur
+# phase 12: the default-off paths and multi-device BA. Tolerances: Schur
 # test_schur_solver_matches_dense's (translations and codes at 48
 # keyframes to ATOL_48); the mesh step
 # test_mapping_step_sharded_matches_single_on_looped_map's; the two ranks
@@ -2280,92 +2275,25 @@ def prior_gap(mapper, full: bool) -> float:
                  - ba.total_error(v_c, priors_only(compact), pyr, cfg))
 
 
-def mega_and_schur(dev, card: str, peaks) -> dict:
-    """Phase 12(a-b): the mega tables and the Schur solver at the bench
-    point, and "auto" at 48 keyframes (see the module note)."""
+def schur_path(dev, card: str) -> dict:
+    """Phase 12(a): the Schur solver at the bench point, and "auto" at 48
+    keyframes (see the module note)."""
     from sage_slam_tpu_torch import synthetic
-    from sage_slam_tpu_torch.config import MapperConfig, TrackerConfig
-    from sage_slam_tpu_torch.geometry.se3 import se3_exp
-    from sage_slam_tpu_torch.ops import photometric
+    from sage_slam_tpu_torch.config import MapperConfig
     from sage_slam_tpu_torch.solver import ba, graph
-    from sage_slam_tpu_torch.tracker import tracker
 
     cfg = MapperConfig()
     variables, problem, pyr = synthetic.bench_problem(device=dev)
     k = variables.num_kf
     ones = torch.ones(k, device=dev)
     plain = ba.prepare_problem(problem, pyr)
-    photometric.USE_MEGA_TABLES = True
-    try:
-        mega = ba.prepare_problem(problem, pyr)
-        target = tracker.TrackerTarget(plain.window.feat_pyr[:, 1], plain.window.grad_pyr[:, :, 1],
-                                       plain.window.mask_flat)
-        target_mega = target.with_packed(pyr)
-    finally:
-        photometric.USE_MEGA_TABLES = False
-    target_plain = target.with_packed(pyr)
-    if mega.window.mega_fg is None or target_mega.mega_fg is None or target_plain.mega_fg is not None:
-        fail("mega tables: USE_MEGA_TABLES did not switch the tables")
-    mega_bytes = sum(t.numel() * t.element_size() for t in (mega.window.mega_fg, mega.window.mega_feat))
     launches = {}
-
-    # (a) linearize and run_ba, mega against per-level
-    h0, b0, e0 = ba.linearize(variables, plain, pyr, cfg)
-    h1, b1, e1 = ba.linearize(variables, mega, pyr, cfg)
-    scale = float(h0.abs().max())
-    np.testing.assert_allclose(h1.cpu().numpy(), h0.cpu().numpy(), rtol=1e-5, atol=1e-6 * scale)
-    np.testing.assert_allclose(b1.cpu().numpy(), b0.cpu().numpy(), rtol=1e-5, atol=1e-6 * scale)
-    np.testing.assert_allclose(float(e1), float(e0), rtol=1e-6)
-    say(f"mega tables: linearize at the bench point, mega vs per-level: max|dH| "
-        f"{float((h1 - h0).abs().max()):.3g} of max|H| {scale:.4g}, max|db| "
-        f"{float((b1 - b0).abs().max()):.3g}, error {float(e1):.8g} vs {float(e0):.8g}: ok")
-    out_m, launches["mega"], _ = counted(lambda: ba.run_ba(variables, mega, pyr, cfg, ones, max_iters=10))
     out_p = ba.run_ba(variables, plain, pyr, cfg, ones, max_iters=10)
-    if launches["mega"] != out_m[2]:
-        fail(f"mega run_ba: K1 launched {launches['mega']} times for {out_m[2]} iterations")
     # an error that descends to ~0 is held to 1e-7 of the start's beside
-    # the relative 1e-6 (test_run_ba_matches_jax's atol)
-    err0 = float(e0)
-    line = hold_run(out_m, out_p, "mega run_ba vs per-level", 1e-6, 1e-7 * err0)
-    say(f"mega tables: run_ba 10 iterations, mega vs per-level: {line}; K1 launches "
-        f"{launches['mega']}: ok")
-    times = {}
-    for name, prob in (("per-level", plain), ("mega", mega), ("mega", mega), ("per-level", plain)):
-        host, ev, _ = time_steps(lambda: ba.run_ba(variables, prob, pyr, cfg, ones, max_iters=10))
-        times.setdefault(name, []).append((host, ev))
-    for name, runs in times.items():
-        say(f"time [{card}] run_ba 10-iteration step, {name} tables: "
-            + ", ".join(f"{h:.3f} ms host / {e:.3f} ms events" for h, e in runs)
-            + " (in turns: per-level, mega, mega, per-level)")
-    say(f"mega tables: mega_fg + mega_feat {mega_bytes} bytes at K={k} "
-        f"(rows {tuple(mega.window.mega_fg.shape)}, {tuple(mega.window.mega_feat.shape)})")
-    k1_mega = k1_hold(bench_prep(mega, variables, pyr, cfg), tuple(cfg.photo_factor_weights),
-                      photometric.level_ratios(pyr), card, peaks, "the mega path's prep inputs")
+    # the relative tolerance (test_run_ba_matches_jax's atol)
+    err0 = float(ba.linearize(variables, plain, pyr, cfg)[2])
 
-    # lm_track at the same widths, mega against per-level, at a budget
-    # that stops before the optimum's float32 ties (the frames are equal),
-    # held to test_torch_tracker.py's lm_track tolerances
-    w = plain.window
-    ref = tracker.TrackerRef(w.homo[0], w.bias_at[0], w.src_feats[0])
-    init = se3_exp(torch.tensor([0.03, -0.02, 0.01, 0.01, -0.02, 0.015], device=dev))
-    tcfg = dataclasses.replace(TrackerConfig(), max_num_iters=6)
-    track = {}
-    for name, tgt in (("per-level", target_plain), ("mega", target_mega)):
-        track[name] = stopwatch(lambda: tracker.lm_track(init.rot, init.trans, ref, tgt, pyr, tcfg))
-    rm, rp = track["mega"][0], track["per-level"][0]
-    if rm.iterations != rp.iterations:
-        fail(f"mega lm_track: {rm.iterations} iterations against {rp.iterations}")
-    np.testing.assert_allclose(rm.trans.cpu().numpy(), rp.trans.cpu().numpy(), atol=1e-5)
-    np.testing.assert_allclose(rm.rot.cpu().numpy(), rp.rot.cpu().numpy(), atol=1e-5)
-    np.testing.assert_allclose(float(rm.error), float(rp.error), rtol=1e-4)
-    t_track = {name: time_steps(lambda tgt=tgt: tracker.lm_track(init.rot, init.trans, ref, tgt, pyr, tcfg))[:2]
-               for name, tgt in (("per-level", target_plain), ("mega", target_mega))}
-    say(f"mega tables: lm_track at SlamConfig() widths, mega vs per-level: {rm.iterations} "
-        f"iterations, max|d trans| {float((rm.trans - rp.trans).abs().max()):.3g}, error "
-        f"{float(rm.error):.8g} vs {float(rp.error):.8g}: ok; [{card}] "
-        + ", ".join(f"{n} {h:.3f} ms host / {e:.3f} ms events" for n, (h, e) in t_track.items()))
-
-    # (b) Schur against dense at the bench point and at 48 keyframes
+    # Schur against dense at the bench point and at 48 keyframes
     schur_cfg, dense_cfg = (dataclasses.replace(cfg, solver=s) for s in ("schur", "dense"))
     out_s, launches["schur"], _ = counted(
         lambda: ba.run_ba(variables, plain, pyr, schur_cfg, ones, max_iters=10))
@@ -2407,11 +2335,11 @@ def mega_and_schur(dev, card: str, peaks) -> dict:
         say(f"time [{card}] run_ba 10-iteration step at the {label}: "
             + ", ".join(f"{n} {h:.3f} ms host / {e:.3f} ms events" for n, (h, e) in t.items())
             + f" (system width {vv.num_kf * vv.block_dim})")
-    return dict(launches=launches, k1=k1_mega, bench=(variables, plain, pyr, cfg))
+    return dict(launches=launches, bench=(variables, plain, pyr, cfg))
 
 
 def multi_device(dev, card: str, peaks, mapper, bench) -> dict:
-    """Phase 12(c-d): the mapper's step on a one-rank NCCL group, and
+    """Phase 12(b-c): the mapper's step on a one-rank NCCL group, and
     two gloo ranks on the one card (see the module note)."""
     from sage_slam_tpu_torch import convert
     from sage_slam_tpu_torch.ops import photometric
@@ -2520,16 +2448,16 @@ def multi_device(dev, card: str, peaks, mapper, bench) -> dict:
 def extras_path(dev, card: str, peaks, mapper) -> dict:
     """Phase 12: the default-off paths and multi-device BA."""
     t0 = time.perf_counter()
-    ab = mega_and_schur(dev, card, peaks)
-    cd = multi_device(dev, card, peaks, mapper, ab["bench"])
+    a = schur_path(dev, card)
+    bc = multi_device(dev, card, peaks, mapper, a["bench"])
     secs = time.perf_counter() - t0
     say(f"phase 12 took {secs:.1f} s")
-    k1s = (ab["k1"], cd["k1_mesh"], cd["k1_rank"])
-    return dict(launches={**ab["launches"], **cd["launches"]},
+    k1s = (bc["k1_mesh"], bc["k1_rank"])
+    return dict(launches={**a["launches"], **bc["launches"]},
                 max_abs_err=max(k["max_abs_err"] for k in k1s),
                 max_rel_err=max(k["max_rel_err"] for k in k1s),
-                mega_shape=ab["k1"]["shape"], mesh_shape=cd["k1_mesh"]["shape"],
-                rank_shape=cd["k1_rank"]["shape"], seconds=secs)
+                mesh_shape=bc["k1_mesh"]["shape"],
+                rank_shape=bc["k1_rank"]["shape"], seconds=secs)
 
 
 # phase 13: the port's measuring programs (sage_slam_tpu_torch/bench/,
@@ -2736,8 +2664,9 @@ def prep_bound(prep, problem, e_sel, peak_bw: float):
     out_b = sum(t.numel() * t.element_size() for t in prep)
     i0, i1 = (x[e_sel] for x in (problem.photo_edges.i0, problem.photo_edges.i1))
     k = w.loc1d.shape[0]
-    src_row = (w.homo.numel() + w.bias_at.numel() + w.jac_at.numel() + w.src_feats.numel()) * 4 // k
-    frame = w.pixel_fg.numel() * 4 // k
+    t = w.tables
+    src_row = (w.homo.numel() + t.bias_at.numel() + t.jac_at.numel() + w.src_feats.numel()) * 4 // k
+    frame = t.pixel_fg.numel() * 4 // k
     nbytes = out_b + len(set(i0.tolist())) * src_row + len(set(i1.tolist())) * frame
     return nbytes / peak_bw * 1e3, nbytes
 
@@ -2891,7 +2820,8 @@ def prep_variants(variables, window, seed: int):
     trans[2, 0] += 50.0
     scale_f[3] = float("nan")
     faulty = Variables(SE3(rot, trans), code, scale_f)
-    return [("decode tables", v, window), ("bias_flat[loc]", v, window._replace(bias_at=None, jac_at=None)),
+    flat = window._replace(tables=window.tables._replace(bias_at=None, jac_at=None))
+    return [("decode tables", v, window), ("bias_flat[loc]", v, flat),
             ("behind, outside, NaN", faulty, window)]
 
 
@@ -3572,7 +3502,6 @@ def main() -> None:
         "demo_shape": demoed["shape"],
         "make_eval_shape": evaled["make_eval_shape"],
         "gt_probe_shape": evaled["gt_probe_shape"],
-        "mega_shape": extra["mega_shape"],
         "mesh_shape": extra["mesh_shape"],
         "gloo_rank_shape": extra["rank_shape"],
         "program_shapes": programs["shapes"],

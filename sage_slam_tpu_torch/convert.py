@@ -34,6 +34,7 @@ import torch
 from .device import resolve_device
 from .geometry.camera import CameraPyramid, PinholeCamera
 from .geometry.se3 import SE3
+from .ops.photometric import FrameTables
 from .solver.ba import BAProblem, EdgeTable, PriorTable, ReprojEdgeTable, WindowData
 from .solver.graph import Variables
 
@@ -89,11 +90,30 @@ def _edges(e, device) -> EdgeTable:
     return EdgeTable(*(_tensor(_field(e, f), device) for f in EdgeTable._fields))
 
 
+def _frame_tables(obj, dev, one_frame: bool) -> FrameTables | None:
+    """The sampling tables the JAX package prepared for a window or one
+    frame as FrameTables (None where it prepared none), a frame's decode
+    tables given their keyframe axis. The pixel rows, which the JAX
+    package lacks, are None; its mega tables are ignored (the port has no
+    mega layout)."""
+    if _opt_field(obj, "packed_fg") is None:
+        return None
+
+    def decode(name):
+        x = _opt_field(obj, name)
+        return None if x is None else _tensor(np.asarray(x)[None] if one_frame else x, dev)
+
+    return FrameTables(
+        _tensor(_field(obj, "packed_fg"), dev), _tensor(_field(obj, "packed_feat"), dev),
+        *(tuple(_tensor(t, dev) for t in _field(obj, f)) for f in ("dense_fg", "dense_feat")),
+        decode("bias_at"), decode("jac_at"), None,
+    )
+
+
 def problem_from_numpy(p, device=None) -> BAProblem:
-    """A BAProblem from the JAX package's problem fields. Gather tables
-    that the JAX side already prepared (the mega tables too, where it
-    built them) are carried over; otherwise solver.ba.prepare_problem
-    builds them."""
+    """A BAProblem from the JAX package's problem fields. Tables that the
+    JAX side already prepared are carried over (_frame_tables: not its
+    mega tables); otherwise solver.ba.prepare_problem builds them."""
     dev = resolve_device(device)
     w = _field(p, "window")
     base = {
@@ -101,16 +121,7 @@ def problem_from_numpy(p, device=None) -> BAProblem:
         for f in ("loc1d", "homo", "bias_flat", "jac_flat", "feat_pyr", "grad_pyr",
                   "src_feats", "avg_sq_bias", "mask_flat")
     }
-    prepared = {}
-    if _opt_field(w, "packed_fg") is not None:
-        for f in ("packed_fg", "packed_feat", "bias_at", "jac_at"):
-            prepared[f] = _tensor(_field(w, f), dev)
-        for f in ("dense_fg", "dense_feat"):
-            prepared[f] = tuple(_tensor(t, dev) for t in _field(w, f))
-        for f in ("mega_fg", "mega_feat"):
-            if _opt_field(w, f) is not None:
-                prepared[f] = _tensor(_field(w, f), dev)
-    window = WindowData(**base, **prepared)
+    window = WindowData(**base, tables=_frame_tables(w, dev, one_frame=False))
     pr = _field(p, "priors")
     priors = PriorTable(
         code_valid=_tensor(_field(pr, "code_valid"), dev),
@@ -209,15 +220,13 @@ def batch_from_numpy(batch, device=None) -> dict:
 
 
 def frame_from_numpy(fr, device=None):
-    """The port's FrameData from the JAX package's FrameData fields (the
-    per-frame tables included; the default-off mega tables are not
-    carried, nor the prep kernel's pixel rows, which the JAX package
-    lacks)."""
+    """The port's FrameData from the JAX package's FrameData fields, the
+    per-frame tables included (_frame_tables: not the JAX package's mega
+    tables, and no pixel rows)."""
     from .mapping.keyframe_store import FrameData
 
     dev = resolve_device(device)
     t = lambda name: _tensor(_field(fr, name), dev)  # noqa: E731
-    opt = lambda name: None if _opt_field(fr, name) is None else t(name)  # noqa: E731
     return FrameData(
         timestamp=float(_field(fr, "timestamp")),
         bias_flat=t("bias_flat"),
@@ -232,12 +241,7 @@ def frame_from_numpy(fr, device=None):
         pose=_se3(_field(fr, "pose"), dev),
         code=t("code"),
         scale=float(_field(fr, "scale")),
-        packed_fg=opt("packed_fg"),
-        packed_feat=opt("packed_feat"),
-        dense_fg=tuple(_tensor(d, dev) for d in (_opt_field(fr, "dense_fg") or ())),
-        dense_feat=tuple(_tensor(d, dev) for d in (_opt_field(fr, "dense_feat") or ())),
-        bias_at=opt("bias_at"),
-        jac_at=opt("jac_at"),
+        tables=_frame_tables(fr, dev, one_frame=True),
     )
 
 

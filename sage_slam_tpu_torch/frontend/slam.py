@@ -215,8 +215,7 @@ class SlamSystem:
         # the frame's own sampling tables, built once by build_frame
         return TrackerTarget(
             feat_pyr=fr.feat_pyr, grad_pyr=fr.grad_pyr, mask_flat=self.mapper.mask_flat,
-            packed_fg=fr.packed_fg, packed_feat=fr.packed_feat, dense_fg=fr.dense_fg,
-            dense_feat=fr.dense_feat,
+            tables=fr.tables,
         )
 
     def _keypoints(self, kf_id: int):
@@ -519,24 +518,14 @@ class SlamSystem:
             pose = _copy_pose(st.pose(kf_id))
             code = st.variables.code[kf_id].clone()
             scale = st.variables.scale[kf_id].clone()
-        tables = {}
-        if st.packed_fg is not None:  # the keyframe's own sampling tables
-            tq, tqf = st.packed_fg.shape[1] // st.capacity, st.packed_feat.shape[1] // st.capacity
-            tables = dict(
-                packed_fg=st.packed_fg[:, kf_id * tq : (kf_id + 1) * tq],
-                packed_feat=st.packed_feat[:, kf_id * tqf : (kf_id + 1) * tqf],
-                dense_fg=tuple(d[kf_id : kf_id + 1] for d in st.dense_fg),
-                dense_feat=tuple(d[kf_id : kf_id + 1] for d in st.dense_feat),
-                bias_at=st.bias_at[kf_id], jac_at=st.jac_at[kf_id],
-                pixel_fg=None if st.pixel_fg is None else st.pixel_fg[kf_id],
-            )
         return FrameData(
             timestamp=st.timestamps[kf_id], bias_flat=st.row("bias_flat", kf_id),
             jac_flat=st.row("jac_flat", kf_id), feat_pyr=st.row("feat_pyr", kf_id),
             grad_pyr=st.row("grad_pyr", kf_id), feat_desc_flat=st.row("feat_desc", kf_id),
             src_feats=st.row("src_feats", kf_id), loc1d=st.row("loc1d", kf_id),
             homo=st.row("homo", kf_id), avg_sq_bias=st.row("avg_sq_bias", kf_id), pose=pose,
-            code=code, scale=float(scale), **tables,
+            code=code, scale=float(scale),
+            tables=None if st.tables is None else st.tables.rows(kf_id),
         )
 
     def _global_candidates(self, kf_id: int, scores, ids, max_sim: float) -> List[int]:

@@ -254,152 +254,6 @@ def dense_bilinear_cm(
     return torch.sum(b * wy.transpose(-1, -2)[..., None, :, :], dim=-2)
 
 
-def build_mega01(
-    rows_l0: torch.Tensor,  # [K, M0, C0] level-0 rows (may carry extra cols)
-    rows_l1: torch.Tensor,  # [K, M1, C1] level-1 rows
-    width0: int,
-    height0: int,
-) -> torch.Tensor:
-    """Pack the level-0 quad corners AND the level-1 3x3 patch into ONE
-    gather row -> [4*C0 + 9*C1 + 2, K*R] (transposed), R = (w0+1)*(h0+1).
-
-    Level 1 must be the exact half resolution of level 0. Row
-    q = (y0+1)*(w0+1) + (x0+1) holds the corners of the level-0 anchor
-    (x0, y0), x0 in [-1, w0-1], y0 in [-1, h0-1] (the clip range of
-    mega_gather), zero-padded at the borders (no flat wrap-around), then
-    the level-1 pixels (ky+dy, kx+dx), dy, dx in {-1, 0, 1}, ky = y0>>1,
-    kx = x0>>1: under the half-pixel level convention this window holds
-    every level-1 tap with a nonzero bounds weight of a point anchored at
-    (x0, y0). The last two entries store the anchor itself, from which
-    mega_level1 selects its taps."""
-    k, m0, c0 = rows_l0.shape
-    _, m1, c1 = rows_l1.shape
-    h0, w0 = height0, width0
-    h1, w1 = h0 // 2, w0 // 2
-    if m0 != h0 * w0 or m1 != h1 * w1:
-        raise ValueError("level shapes do not match an exact half pyramid")
-    dev, dt = rows_l0.device, rows_l0.dtype
-    p0 = torch.nn.functional.pad(rows_l0.reshape(k, h0, w0, c0), (0, 0, 1, 1, 1, 1))
-    parts = [
-        p0[:, b : b + h0 + 1, a : a + w0 + 1]
-        for b, a in ((0, 0), (0, 1), (1, 0), (1, 1))  # slots c00 c10 c01 c11
-    ]
-    p1 = torch.nn.functional.pad(rows_l1.reshape(k, h1, w1, c1), (0, 0, 2, 2, 2, 2))
-    gy = torch.div(torch.arange(h0 + 1, device=dev) - 1, 2, rounding_mode="floor")
-    gx = torch.div(torch.arange(w0 + 1, device=dev) - 1, 2, rounding_mode="floor")
-    for dy in (-1, 0, 1):
-        rowsel = p1.index_select(1, gy + dy + 2)  # [K, h0+1, w1+4, C1]
-        for dx in (-1, 0, 1):
-            parts.append(rowsel.index_select(2, gx + dx + 2))
-    ax = (torch.arange(w0 + 1, dtype=dt, device=dev) - 1)[None, None, :, None]
-    ay = (torch.arange(h0 + 1, dtype=dt, device=dev) - 1)[None, :, None, None]
-    parts.append(ax.expand(k, h0 + 1, w0 + 1, 1))
-    parts.append(ay.expand(k, h0 + 1, w0 + 1, 1))
-    mega = torch.cat(parts, dim=-1)  # [K, h0+1, w0+1, 4C0+9C1+2]
-    return mega.reshape(k * (h0 + 1) * (w0 + 1), -1).T.contiguous()
-
-
-def mega_gather(
-    megaT: torch.Tensor,  # [4*c0 + 9*c1 + 2, K*R] from build_mega01
-    x: torch.Tensor,  # [..., N] LEVEL-0 coords
-    y: torch.Tensor,
-    width0: int,
-    height0: int,
-    offset=0,  # frame row offset (a multiple of R): int or [...] tensor
-):
-    """One column gather from the mega table -> (rowv [..., rows, N], the
-    level-0 corner weights (w00, w10, w01, w11), xc, yc clipped anchors).
-    Level-0 semantics as quad_gather_cols."""
-    x0 = torch.floor(x)
-    y0 = torch.floor(y)
-    wx0 = (x0 + 1.0) - x
-    wy0 = (y0 + 1.0) - y
-    wx1 = 1.0 - wx0
-    wy1 = 1.0 - wy0
-    xi0 = _int_coord(x0, width0)
-    yi0 = _int_coord(y0, height0)
-    dt = x.dtype
-    bx0 = ((xi0 >= 0) & (xi0 < width0)).to(dt)
-    bx1 = ((xi0 + 1 >= 0) & (xi0 + 1 < width0)).to(dt)
-    by0 = ((yi0 >= 0) & (yi0 < height0)).to(dt)
-    by1 = ((yi0 + 1 >= 0) & (yi0 + 1 < height0)).to(dt)
-    xc = xi0.clamp(-1, width0 - 1)
-    yc = yi0.clamp(-1, height0 - 1)
-    q = _offset(offset, x) + (yc + 1) * (width0 + 1) + (xc + 1)
-    rowv = _take_cols(megaT, q)
-    weights = (
-        wx0 * wy0 * bx0 * by0,
-        wx1 * wy0 * bx1 * by0,
-        wx0 * wy1 * bx0 * by1,
-        wx1 * wy1 * bx1 * by1,
-    )
-    return rowv, weights, xc, yc
-
-
-def mega_level1(
-    rowv: torch.Tensor,  # [..., 4*c0 + 9*c1 + 2, N] from mega_gather
-    x1: torch.Tensor,  # [..., N] LEVEL-1 coords
-    y1: torch.Tensor,
-    width1: int,
-    height1: int,
-    c0: int,
-    c1: int,
-) -> torch.Tensor:
-    """Exact level-1 bilinear from the gathered 3x3 patch -> [..., c1, N].
-
-    The 2x2 taps are selected by comparing the level-1 floor with the
-    patch anchor (x0>>1, y0>>1) READ FROM THE GATHERED ROW's anchor
-    entries, so they always agree with the fetched patch. Each tap keeps
-    its own in-patch validity: a tap outside the patch is zeroed rather
-    than read from a wrong pixel. The same weights, combined in the same
-    order as a separate level-1 quad gather."""
-    x10 = torch.floor(x1)
-    y10 = torch.floor(y1)
-    wx0 = (x10 + 1.0) - x1
-    wy0 = (y10 + 1.0) - y1
-    wx1 = 1.0 - wx0
-    wy1 = 1.0 - wy0
-    xi1 = _int_coord(x10, width1)
-    yi1 = _int_coord(y10, height1)
-    dt = rowv.dtype
-    bx0 = ((xi1 >= 0) & (xi1 < width1)).to(dt)
-    bx1 = ((xi1 + 1 >= 0) & (xi1 + 1 < width1)).to(dt)
-    by0 = ((yi1 >= 0) & (yi1 < height1)).to(dt)
-    by1 = ((yi1 + 1 >= 0) & (yi1 + 1 < height1)).to(dt)
-    base = 4 * c0
-    anchor = base + 9 * c1
-    kx = torch.div(rowv[..., anchor, :].long(), 2, rounding_mode="floor")
-    ky = torch.div(rowv[..., anchor + 1, :].long(), 2, rounding_mode="floor")
-    cxa = xi1 - kx + 1
-    cya = yi1 - ky + 1
-    vx0 = ((cxa >= 0) & (cxa <= 2)).to(dt)
-    vx1 = ((cxa + 1 >= 0) & (cxa + 1 <= 2)).to(dt)
-    vy0 = ((cya >= 0) & (cya <= 2)).to(dt)
-    vy1 = ((cya + 1 >= 0) & (cya + 1 <= 2)).to(dt)
-    w00 = wx0 * wy0 * bx0 * by0 * vx0 * vy0
-    w10 = wx1 * wy0 * bx1 * by0 * vx1 * vy0
-    w01 = wx0 * wy1 * bx0 * by1 * vx0 * vy1
-    w11 = wx1 * wy1 * bx1 * by1 * vx1 * vy1
-    # per-cell weight masks: cell (r, c) of the patch gathers the weights
-    # of the corners that land on it
-    rx0 = [(cxa == j).to(dt) for j in range(3)]
-    rx1 = [(cxa + 1 == j).to(dt) for j in range(3)]
-    ry0 = [(cya == j).to(dt) for j in range(3)]
-    ry1 = [(cya + 1 == j).to(dt) for j in range(3)]
-    out = torch.zeros((*x1.shape[:-1], c1, x1.shape[-1]), dtype=dt, device=rowv.device)
-    for r in range(3):
-        for c in range(3):
-            m = (
-                w00 * (ry0[r] * rx0[c])
-                + w10 * (ry0[r] * rx1[c])
-                + w01 * (ry1[r] * rx0[c])
-                + w11 * (ry1[r] * rx1[c])
-            )
-            cell = base + (r * 3 + c) * c1
-            out = out + rowv[..., cell : cell + c1, :] * m[..., None, :]
-    return out
-
-
 def nearest_flat(
     img_flat: torch.Tensor,  # [C, total] or [total]
     x: torch.Tensor,

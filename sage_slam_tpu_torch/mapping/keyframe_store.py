@@ -25,6 +25,7 @@ import torch
 
 from ..geometry.se3 import SE3
 from ..ops.depth import decode_depth
+from ..ops.photometric import FrameTables
 from ..solver.ba import WindowData
 from ..solver.graph import Variables
 
@@ -46,15 +47,9 @@ class FrameData:
     pose: SE3
     code: torch.Tensor  # [CS]
     scale: float
-    # the frame's own sampling tables (ops/photometric.build_photo_tables
-    # with K=1), so a mapping step never rebuilds them for the window
-    packed_fg: Optional[torch.Tensor] = None  # [4*(3C+1), Tq]
-    packed_feat: Optional[torch.Tensor] = None  # [4*(C+1), Tq]
-    dense_fg: tuple = ()  # per dense level: [1, 3C, M_l]
-    dense_feat: tuple = ()  # per dense level: [1, C, M_l]
-    bias_at: Optional[torch.Tensor] = None  # [N]
-    jac_at: Optional[torch.Tensor] = None  # [N, CS]
-    pixel_fg: Optional[torch.Tensor] = None  # [T, PW] (ops/photo_prep.pixel_table)
+    # the frame's own sampling and decode tables (K=1), so a mapping step
+    # never rebuilds them for the window
+    tables: Optional[FrameTables] = None
 
 
 class KeyframeStore:
@@ -80,13 +75,7 @@ class KeyframeStore:
         self.feat_desc = z(k, hw, fs)
         self.avg_sq_bias = z(k)
         # sampling tables, allocated from the first added frame's shapes
-        self.packed_fg: Optional[torch.Tensor] = None  # [4*(3C+1), K*Tq]
-        self.packed_feat: Optional[torch.Tensor] = None  # [4*(C+1), K*Tq]
-        self.dense_fg: tuple = ()
-        self.dense_feat: tuple = ()
-        self.bias_at: Optional[torch.Tensor] = None  # [K, N]
-        self.jac_at: Optional[torch.Tensor] = None  # [K, N, CS]
-        self.pixel_fg: Optional[torch.Tensor] = None  # [K, T, PW]
+        self.tables: Optional[FrameTables] = None
         # host-side metadata
         self.timestamps: List[float] = []
         self.reinitialize_count = np.zeros(k, np.int32)
@@ -108,38 +97,14 @@ class KeyframeStore:
         with self.lock:
             return self._add_locked(fr)
 
-    def write_tables(self, i: int, packed_fg, packed_feat, dense_fg, dense_feat, bias_at, jac_at,
-                     pixel_fg=None):
-        """Write one frame's sampling tables (K=1) into row i, allocating the
-        store's tables from their shapes at the first write (call under
-        ``lock``). The pixel rows come with every frame's tables or with
-        none (frames converted from the JAX package lack them)."""
-        k = self.capacity
-        first = self.packed_fg is None
-        if not first and (pixel_fg is None) != (self.pixel_fg is None):
-            raise ValueError("keyframe store: pixel rows come with every frame's tables or with none")
-        if first:
-            z = lambda shape, like: torch.zeros(shape, dtype=like.dtype, device=self.device)  # noqa: E731
-            self.packed_fg = z((packed_fg.shape[0], k * packed_fg.shape[1]), packed_fg)
-            self.packed_feat = z((packed_feat.shape[0], k * packed_feat.shape[1]), packed_feat)
-            self.dense_fg = tuple(z((k, *d.shape[1:]), d) for d in dense_fg)
-            self.dense_feat = tuple(z((k, *d.shape[1:]), d) for d in dense_feat)
-            self.bias_at = z((k, *bias_at.shape), bias_at)
-            self.jac_at = z((k, *jac_at.shape), jac_at)
-            if pixel_fg is not None:
-                self.pixel_fg = z((k, *pixel_fg.shape), pixel_fg)
-        tq = packed_fg.shape[1]
-        tqf = packed_feat.shape[1]
-        self.packed_fg[:, i * tq : (i + 1) * tq] = packed_fg
-        self.packed_feat[:, i * tqf : (i + 1) * tqf] = packed_feat
-        for big, small in zip(self.dense_fg, dense_fg):
-            big[i] = small[0]
-        for big, small in zip(self.dense_feat, dense_feat):
-            big[i] = small[0]
-        self.bias_at[i] = bias_at
-        self.jac_at[i] = jac_at
-        if pixel_fg is not None:
-            self.pixel_fg[i] = pixel_fg
+    def write_tables(self, i: int, tables: FrameTables):
+        """Write one frame's tables (K=1) into row i, allocating the store's
+        from their shapes at the first write (call under ``lock``). The
+        pixel rows come with every frame's tables or with none (frames
+        converted from the JAX package lack them)."""
+        if self.tables is None:
+            self.tables = FrameTables.zeros(self.capacity, tables, self.device)
+        self.tables.write(i, tables)
 
     def _add_locked(self, fr: FrameData) -> int:
         i = self.num_active
@@ -159,9 +124,8 @@ class KeyframeStore:
         self.grad_pyr[:, :, i] = fr.grad_pyr
         self.feat_desc[i] = fr.feat_desc_flat
         self.avg_sq_bias[i] = fr.avg_sq_bias
-        if fr.packed_fg is not None:
-            self.write_tables(i, fr.packed_fg, fr.packed_feat, fr.dense_fg, fr.dense_feat,
-                              fr.bias_at, fr.jac_at, fr.pixel_fg)
+        if fr.tables is not None:
+            self.write_tables(i, fr.tables)
         self.timestamps.append(fr.timestamp)
         self.links[i] = set()
         self.version[i] += 1
@@ -190,9 +154,7 @@ class KeyframeStore:
             loc1d=self.loc1d, homo=self.homo, bias_flat=self.bias_flat,
             jac_flat=self.jac_flat, feat_pyr=self.feat_pyr, grad_pyr=self.grad_pyr,
             src_feats=self.src_feats, avg_sq_bias=self.avg_sq_bias, mask_flat=mask_flat,
-            packed_fg=self.packed_fg, packed_feat=self.packed_feat, bias_at=self.bias_at,
-            jac_at=self.jac_at, dense_fg=self.dense_fg, dense_feat=self.dense_feat,
-            pixel_fg=self.pixel_fg,
+            tables=self.tables,
         )
 
     def nbytes(self) -> int:
@@ -200,11 +162,10 @@ class KeyframeStore:
         tensors = [
             *self.variables.pose, self.variables.code, self.variables.scale, self.loc1d,
             self.homo, self.bias_flat, self.jac_flat, self.feat_pyr, self.src_feats,
-            self.grad_pyr, self.feat_desc, self.avg_sq_bias, self.packed_fg,
-            self.packed_feat, *self.dense_fg, *self.dense_feat, self.bias_at, self.jac_at,
-            self.pixel_fg,
+            self.grad_pyr, self.feat_desc, self.avg_sq_bias,
         ]
-        return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+        tables = 0 if self.tables is None else self.tables.nbytes()
+        return tables + sum(t.numel() * t.element_size() for t in tensors)
 
     def snapshot(self):
         """(num_active, version copy, cloned variables) for a backend solve;

@@ -51,7 +51,7 @@ from ..geometry import interp
 from ..geometry.camera import CameraPyramid
 from ..geometry.se3 import SE3, relative_pose
 from ..models import depth_network, feature_network
-from ..ops import photo_prep, photometric
+from ..ops import photometric
 from ..ops.pyramid import gaussian_pyramid_with_grad, mask_pyramid
 from ..solver import ba
 from ..solver.graph import Variables
@@ -168,8 +168,7 @@ class Mapper:
                 SE3(copy_to(src.variables.pose.rot), copy_to(src.variables.pose.trans)),
                 copy_to(src.variables.code), copy_to(src.variables.scale),
             )
-            dst.dense_fg = tuple(copy_to(t) for t in src.dense_fg)
-            dst.dense_feat = tuple(copy_to(t) for t in src.dense_feat)
+            dst.tables = None if src.tables is None else src.tables.map(lambda t, _: copy_to(t))
             out.photo_edges = list(self.photo_edges)
             out.geo_edges = list(self.geo_edges)
             out.photo_edge_iters = list(self.photo_edge_iters)
@@ -258,17 +257,12 @@ class Mapper:
     def frame_tables(self, feat_pyr, grad_pyr, loc1d, bias_flat, jac_flat) -> dict:
         """What build_frame derives from a frame's pyramids [C, T] and
         [2, C, T], photometric ids and depth maps, by FrameData field:
-        src_feats, the sampling tables (K=1), bias_at, jac_at and the prep
-        kernel's pixel rows. serialize.load_state rebuilds a restored row's
-        tables with it."""
-        packed_fg, packed_feat, dense_fg, dense_feat = photometric.build_photo_tables(
-            feat_pyr, grad_pyr, self.mask_flat, self.cam_pyr, mega=False
-        )[:4]
+        src_feats and the frame's FrameTables (K=1). serialize.load_state
+        rebuilds a restored row's with it."""
         return dict(
             src_feats=photometric.sample_source_features(feat_pyr, loc1d, self.cam_pyr),
-            packed_fg=packed_fg, packed_feat=packed_feat, dense_fg=dense_fg, dense_feat=dense_feat,
-            bias_at=bias_flat[loc1d], jac_at=jac_flat[loc1d],
-            pixel_fg=photo_prep.pixel_table(feat_pyr, grad_pyr, self.mask_flat, self.cam_pyr)[0],
+            tables=photometric.FrameTables.build(feat_pyr, grad_pyr, self.mask_flat, self.cam_pyr,
+                                                 loc1d, bias_flat, jac_flat),
         )
 
     # ------------------------------------------------------------------

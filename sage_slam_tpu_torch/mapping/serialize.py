@@ -15,9 +15,10 @@ trajectory (it restarts at the resume point) and no reprojection edges
 Two departures from the JAX ``load_state``, which restores the rows and
 nothing derived from them:
 
-* the derived tables of every restored row (``src_feats``, the packed and
-  dense sampling tables, ``bias_at``, ``jac_at``) are rebuilt with the
-  functions build_frame uses (Mapper.frame_tables); JAX leaves
+* the derived tables of every restored row (``src_feats`` and its
+  FrameTables: the packed and dense sampling tables, ``bias_at``,
+  ``jac_at``, the prep kernel's rows) are rebuilt with the functions
+  build_frame uses (Mapper.frame_tables); JAX leaves
   ``src_feats`` at zeros and the tables unset, so its resumed mapping step
   solves a different problem;
 * the mapper's priors are rebuilt: the first keyframe anchors the pose,
@@ -116,12 +117,12 @@ def load_state(path: str, system) -> None:
         store.links = {int(k): set(s) for k, s in json.loads(str(d["links"])).items()}
         store.global_loop_links = {tuple(x) for x in json.loads(str(d["global_loop_links"]))}
         for i in range(n):
-            tables = mapper.frame_tables(
+            derived = mapper.frame_tables(
                 store.feat_pyr[:, i].contiguous(), store.grad_pyr[:, :, i].contiguous(),
                 store.loc1d[i], store.bias_flat[i], store.jac_flat[i],
             )
-            store.src_feats[i] = tables.pop("src_feats")
-            store.write_tables(i, **tables)
+            store.src_feats[i] = derived["src_feats"]
+            store.write_tables(i, derived["tables"])
             store.version[i] += 1
         mapper.photo_edges = [tuple(int(x) for x in e) for e in d["photo_edges"]]
         mapper.geo_edges = [tuple(int(x) for x in e) for e in d["geo_edges"]]

@@ -10,9 +10,9 @@ a template parameter, built at 16 and 32; ``code_width`` picks the smaller
 that holds CS, and each launch adds W to the ``utils/timing`` count
 ``photo.prep_cs`` of the span open around it.
 It takes the window's tensors whole and the edge indices, and samples the
-target frames from the window's ``pixel_fg``, ``pixel_table``'s
-point-major rows (built once a keyframe by Mapper.frame_tables, or once a
-problem by solver.ba.prepare_problem).
+target frames from ``pixel_table``'s point-major rows, the window's
+``tables.pixel_fg`` (ops/photometric.FrameTables, built once a keyframe
+by Mapper.frame_tables, or once a problem by solver.ba.prepare_problem).
 
 Dispatch (``uses_kernel``): CUDA tensors launch the kernel, which raises on
 inputs it cannot take (the checks are ``check_inputs``, plain Python); CPU
@@ -58,7 +58,7 @@ def pixel_table(feat_pyr: torch.Tensor, grad_pyr: torch.Tensor, mask_flat: torch
     """The target-sampling table of the kernel -> [K, T, row_width(C)]:
     per pyramid pixel its C features, the 2C gradients (x channels, then
     y), the full-resolution mask (level-0 pixels only, zero elsewhere) and
-    zeros. The rows of build_photo_tables' quad tables before packing, in
+    zeros. The rows of photometric.build_photo_tables' quad tables before packing, in
     point-major order. feat_pyr [C, K, T] or [C, K*T], grad_pyr likewise
     with a leading 2, mask_flat [HW]."""
     c = feat_pyr.shape[0]
@@ -90,15 +90,17 @@ def _on_card(t: torch.Tensor) -> bool:
 
 def check_inputs(rot, trans, code, scale, i0, i1, window, cam_pyr: CameraPyramid):
     """Raise on inputs the kernel cannot take -> (E, K, N, C, CS, L).
-    window is a solver.ba.WindowData whose pixel_fg is filled."""
+    window is a solver.ba.WindowData whose tables carry pixel_fg."""
     w = window
-    src, pixel = w.src_feats, w.pixel_fg
+    tables = w.tables
+    src, pixel = w.src_feats, None if tables is None else tables.pixel_fg
     if pixel is None:
         raise ValueError("photo_prep kernel: the window has no pixel_fg "
                          "(solver.ba.prepare_problem builds it)")
+    bias_at, jac_at = tables.bias_at, tables.jac_at
     floats = {"rot": rot, "trans": trans, "code": code, "scale": scale, "homo": w.homo,
               "bias_flat": w.bias_flat, "jac_flat": w.jac_flat, "src_feats": src,
-              "pixel_fg": pixel, "bias_at": w.bias_at, "jac_at": w.jac_at}
+              "pixel_fg": pixel, "bias_at": bias_at, "jac_at": jac_at}
     ints = {"i0": i0, "i1": i1, "loc1d": w.loc1d}
     for name, t in floats.items():
         if t is not None and t.dtype != torch.float32:
@@ -120,9 +122,9 @@ def check_inputs(rot, trans, code, scale, i0, i1, window, cam_pyr: CameraPyramid
     want = {"rot": (k, 3, 3), "trans": (k, 3), "code": (k, cs), "scale": (k,), "i0": (e,),
             "i1": (e,), "homo": (k, n, 3), "loc1d": (k, n), "bias_flat": (k, hw),
             "jac_flat": (k, hw, cs), "pixel_fg": (k, cam_pyr.total_pixels, row_width(c))}
-    if (w.bias_at is None) != (w.jac_at is None):
+    if (bias_at is None) != (jac_at is None):
         raise ValueError("photo_prep kernel: bias_at and jac_at are given together or not at all")
-    if w.bias_at is not None:
+    if bias_at is not None:
         want.update(bias_at=(k, n), jac_at=(k, n, cs))
     tensors = {**floats, **ints}
     for name, shape in want.items():
@@ -188,14 +190,14 @@ def _launch(rot, trans, code, scale, i0, i1, window, cam_pyr, eps, soft):
     gate = torch.empty((e, n), dtype=torch.float32, device=dev)
     kx = torch.empty((e, dim, n), dtype=torch.float32, device=dev)
     ky = torch.empty((e, dim, n), dtype=torch.float32, device=dev)
-    w = window
-    pixel = w.pixel_fg
+    w, tables = window, window.tables
+    pixel = tables.pixel_fg
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = _library()
     status = lib.photo_prep_launch(
         rot.data_ptr(), trans.data_ptr(), code.data_ptr(), scale.data_ptr(), i0.data_ptr(),
-        i1.data_ptr(), w.homo.data_ptr(), ptr(w.bias_at), ptr(w.jac_at), w.loc1d.data_ptr(),
-        w.bias_flat.data_ptr(), w.jac_flat.data_ptr(), w.src_feats.data_ptr(), pixel.data_ptr(),
+        i1.data_ptr(), w.homo.data_ptr(), ptr(tables.bias_at), ptr(tables.jac_at),
+        w.loc1d.data_ptr(), w.bias_flat.data_ptr(), w.jac_flat.data_ptr(), w.src_feats.data_ptr(), pixel.data_ptr(),
         fgs.data_ptr(), f0.data_ptr(), gate.data_ptr(), kx.data_ptr(), ky.data_ptr(),
         e, n, cam_pyr[0].num_pixels, cam_pyr.total_pixels, pixel.shape[-1], c, cs, width, lv,
         int(soft),
@@ -213,7 +215,7 @@ def photo_prep_edges(rot, trans, code, scale, i0, i1, window, cam_pyr: CameraPyr
                      eps: float, soft: bool = False):
     """The kernel's prep of edges kf[i0] -> frame[i1] -> (fgs, f0_cm, gate,
     kx, ky), from the variables (pose rot [K, 3, 3], trans [K, 3], code
-    [K, CS], scale [K]) and a solver.ba.WindowData with its pixel_fg, all
+    [K, CS], scale [K]) and a solver.ba.WindowData whose tables carry pixel_fg, all
     CUDA tensors."""
     return _launch(rot, trans, code, scale, i0, i1, window, cam_pyr, eps, soft)
 

@@ -18,9 +18,9 @@ Tables: the target frame is sampled from channel-major quad-packed tables
 (``packed_fg [4*(3C+1), K*Tq]``, ``packed_feat [4*(C+1), K*Tq]``, the
 full-res validity mask folded in as the last row of each corner block) and,
 for the coarse levels of at most DENSE_MAX_PIXELS pixels, from dense
-per-frame tables sampled by hat-weight matmuls. With USE_MEGA_TABLES on
-(off by default, as in the JAX package), levels 0 and 1 and the mask come
-from one wider "mega" row per point (geometry/interp.build_mega01).
+per-frame tables sampled by hat-weight matmuls. FrameTables holds them,
+with the source decode tables and the prep kernel's rows, for every
+caller.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ from ..geometry import interp
 from ..geometry.camera import CameraPyramid
 from ..geometry.se3 import SE3
 from . import residuals
+from .photo_prep import pixel_table
 from .photo_reduce import photo_reduce
 
 DENSE_MAX_PIXELS = 512
@@ -43,48 +44,23 @@ class PhotoShared(NamedTuple):
     """Shared (not per-edge) window tables, flattened over K keyframes of
     HW pixels and T pyramid pixels: bias_flat [K*HW], jac_flat [K*HW, CS],
     feat_pyr [C, K*T], grad_pyr [2, C, K*T], mask_flat [HW], plus the
-    gather tables of build_photo_tables (built lazily when None)."""
+    window's FrameTables (built inside each factor evaluation when None)."""
 
     bias_flat: torch.Tensor
     jac_flat: torch.Tensor
     feat_pyr: torch.Tensor
     grad_pyr: torch.Tensor
     mask_flat: torch.Tensor
-    packed_fg: torch.Tensor | None = None  # [4*(3C+1), K*Tq]
-    packed_feat: torch.Tensor | None = None  # [4*(C+1), K*Tq]
-    dense_fg: tuple = ()  # per dense level: [K, 3C, M_l]
-    dense_feat: tuple = ()  # per dense level: [K, C, M_l]
-    # levels 0+1 and the mask in one gather row (interp.build_mega01):
-    # [4*(3C+1)+9*3C+2, K*R] / [4*(C+1)+9*C+2, K*R], R = (w0+1)*(h0+1)
-    mega_fg: torch.Tensor | None = None
-    mega_feat: torch.Tensor | None = None
-
-
-# Fold levels 0+1 into one wide gather row (interp.build_mega01). Off by
-# default, as in the JAX package; a module flag like JAX's.
-USE_MEGA_TABLES = False
-
-
-def _mega_ok(cam_pyr: CameraPyramid) -> bool:
-    """Mega tables need level 1 at the exact half resolution of level 0
-    (the 3x3-patch containment argument of interp.build_mega01)."""
-    return (
-        USE_MEGA_TABLES
-        and cam_pyr.levels >= 2
-        and cam_pyr[1].width * 2 == cam_pyr[0].width
-        and cam_pyr[1].height * 2 == cam_pyr[0].height
-    )
+    tables: FrameTables | None = None
 
 
 def single_frame_shared(bias_flat, jac_flat, feat_pyr, grad_pyr, mask_flat,
                         cam_pyr: CameraPyramid | None = None) -> PhotoShared:
     """One frame's arrays as a K=1 shared table (training, tests). With
-    cam_pyr the gather tables are built here; without, inside each factor
+    cam_pyr the sampling tables are built here; without, inside each factor
     evaluation."""
-    if cam_pyr is None:
-        return PhotoShared(bias_flat, jac_flat, feat_pyr, grad_pyr, mask_flat)
-    tables = build_photo_tables(feat_pyr, grad_pyr, mask_flat, cam_pyr)
-    return PhotoShared(bias_flat, jac_flat, feat_pyr, grad_pyr, mask_flat, *tables)
+    tables = None if cam_pyr is None else FrameTables.build(feat_pyr, grad_pyr, mask_flat, cam_pyr)
+    return PhotoShared(bias_flat, jac_flat, feat_pyr, grad_pyr, mask_flat, tables)
 
 
 class PhotoKf0(NamedTuple):
@@ -132,13 +108,10 @@ def build_photo_tables(
     grad_pyr: torch.Tensor,  # [2, C, K*T]
     mask_flat: torch.Tensor,  # [HW]
     cam_pyr: CameraPyramid,
-    mega: bool = True,
 ):
     """Target-sampling tables -> (packed_fg [4*(3C+1), K*Tq],
-    packed_feat [4*(C+1), K*Tq], dense_fg, dense_feat, mega_fg, mega_feat),
-    channel-major and contiguous; the mega tables are None unless
-    _mega_ok, or when ``mega`` is False (a caller that keeps only the
-    per-level tables)."""
+    packed_feat [4*(C+1), K*Tq], dense_fg, dense_feat), channel-major and
+    contiguous."""
     c, m = feat_pyr.shape
     t = cam_pyr.total_pixels
     k = m // t
@@ -164,32 +137,125 @@ def build_photo_tables(
         off = cam_pyr.level_offsets[lvl]
         npx = cam_pyr[lvl].num_pixels
         dense_feat.append(featT[:, off : off + npx].transpose(1, 2).contiguous())
-    mega_fg = mega_feat = None
-    if mega and _mega_ok(cam_pyr):
-        cam0, cam1 = cam_pyr[0], cam_pyr[1]
-        off1 = cam_pyr.level_offsets[1]
-        m1 = cam1.num_pixels
-        mega_fg = interp.build_mega01(
-            torch.cat([rows_fg[:, :hw], mask_col[:, :hw]], dim=-1),
-            rows_fg[:, off1 : off1 + m1], cam0.width, cam0.height,
-        )
-        mega_feat = interp.build_mega01(
-            torch.cat([featT[:, :hw], mask_col[:, :hw]], dim=-1),
-            featT[:, off1 : off1 + m1], cam0.width, cam0.height,
-        )
-    return (packed_fg, packed_feat, tuple(dense_fg), tuple(dense_feat), mega_fg,
-            mega_feat)
+    return packed_fg, packed_feat, tuple(dense_fg), tuple(dense_feat)
 
 
-def _tables(shared: PhotoShared, cam_pyr: CameraPyramid):
-    """(packed_fg, packed_feat, dense_fg, dense_feat, mega_fg, mega_feat),
-    built here when the shared tables are unset."""
-    if shared.packed_fg is not None:
-        return (shared.packed_fg, shared.packed_feat, shared.dense_fg, shared.dense_feat,
-                shared.mega_fg, shared.mega_feat)
-    return build_photo_tables(
-        shared.feat_pyr, shared.grad_pyr, shared.mask_flat, cam_pyr
-    )
+class FrameTables(NamedTuple):
+    """The sampling tables derived from K keyframes, and the one owner of
+    their format: other modules read the fields or call the methods, and
+    never index, slice or reshape a table.
+
+    The packed tables fold the keyframe axis into their columns (keyframe
+    k owns columns [k*Tq, (k+1)*Tq)); every other table leads with it. A
+    frame of its own (FrameData, a tracker target) holds K=1 tables, a
+    keyframe store K = its capacity. bias_at / jac_at, the source decode
+    at the sampled pixels, are None without sampled pixels (a tracker
+    target); pixel_fg is None for tables converted from the JAX package,
+    which has none."""
+
+    packed_fg: torch.Tensor  # [4*(3C+1), K*Tq] quads of features, gradients, mask
+    packed_feat: torch.Tensor  # [4*(C+1), K*Tq] quads of features, mask
+    dense_fg: tuple  # per dense level: [K, 3C, M_l]
+    dense_feat: tuple  # per dense level: [K, C, M_l]
+    bias_at: torch.Tensor | None  # [K, N]
+    jac_at: torch.Tensor | None  # [K, N, CS]
+    pixel_fg: torch.Tensor | None  # [K, T, PW] the prep kernel's rows (photo_prep.pixel_table)
+
+    @staticmethod
+    def build(feat_pyr, grad_pyr, mask_flat, cam_pyr: CameraPyramid, loc1d=None,
+              bias_flat=None, jac_flat=None) -> FrameTables:
+        """The tables of K >= 1 frames from their pyramids (feat_pyr [C, T],
+        [C, K, T] or [C, K*T]; grad_pyr likewise with a leading 2) and the
+        mask [HW]; with loc1d ([N] or [K, N]) the decode tables too, from
+        bias_flat ([HW] or [K, HW]) and jac_flat ([HW, CS] or [K, HW, CS])."""
+        c = feat_pyr.shape[0]
+        feat, grad = feat_pyr.reshape(c, -1), grad_pyr.reshape(2, c, -1)
+        bias_at = jac_at = None
+        if loc1d is not None:
+            k = feat.shape[1] // cam_pyr.total_pixels
+            loc = loc1d.long().reshape(k, -1)
+            bias_at = bias_flat.reshape(k, -1).take_along_dim(loc, 1)
+            jac_at = jac_flat.reshape(k, -1, jac_flat.shape[-1]).take_along_dim(loc[..., None], 1)
+        return FrameTables(
+            *build_photo_tables(feat, grad, mask_flat, cam_pyr), bias_at, jac_at,
+            pixel_table(feat, grad, mask_flat, cam_pyr),
+        )
+
+    @staticmethod
+    def zeros(capacity: int, like: FrameTables, device=None) -> FrameTables:
+        """Zero tables of ``capacity`` keyframes, shaped and typed as
+        ``like``'s rows (a store's, allocated at its first write)."""
+
+        def alloc(t, axis):
+            shape = list(t.shape)
+            shape[axis] = capacity
+            return torch.zeros(shape, dtype=t.dtype, device=device)
+
+        return like.map(alloc)
+
+    @property
+    def num_kf(self) -> int:
+        for t in (self.pixel_fg, self.bias_at, *self.dense_fg, *self.dense_feat):
+            if t is not None:
+                return t.shape[0]
+        raise ValueError("frame tables: no table has a keyframe axis")
+
+    def map(self, fn) -> FrameTables:
+        """The tables with ``fn(table, kf_axis)`` applied to each: the packed
+        tables given as [cw, K, Tq] (kf_axis 1) and folded back from what
+        fn returns, the others as they are (kf_axis 0)."""
+        k = self.num_kf
+
+        def packed(t):
+            return fn(t.reshape(t.shape[0], k, -1), 1).reshape(t.shape[0], -1)
+
+        def opt(t):
+            return None if t is None else fn(t, 0)
+
+        return FrameTables(
+            packed(self.packed_fg), packed(self.packed_feat),
+            tuple(fn(d, 0) for d in self.dense_fg), tuple(fn(d, 0) for d in self.dense_feat),
+            opt(self.bias_at), opt(self.jac_at), opt(self.pixel_fg),
+        )
+
+    def leaves(self) -> list:
+        """[(table, kf_axis)] in map's order, each as map gives it to fn."""
+        out = []
+        self.map(lambda t, axis: out.append((t, axis)) or t)
+        return out
+
+    def rows(self, sel) -> FrameTables:
+        """The tables of keyframes ``sel``: a slice, an index tensor (one
+        gather a table) or one id (K=1 views)."""
+        if not isinstance(sel, (slice, torch.Tensor)):
+            sel = slice(sel, sel + 1)
+        return self.map(lambda t, axis: t[:, sel] if axis else t[sel])
+
+    def write(self, i: int, one: FrameTables) -> None:
+        """Write one frame's tables (K=1) into keyframe row i, in place.
+        The pixel rows come with every frame's tables or with none."""
+        if (one.pixel_fg is None) != (self.pixel_fg is None):
+            raise ValueError("frame tables: pixel rows come with every frame's tables or with none")
+        for (row, axis), (src, _) in zip(self.leaves(), one.leaves()):
+            row.select(axis, i).copy_(src.select(axis, 0))
+
+    def source_at(self, idx: torch.Tensor):
+        """The decode tables of keyframes ``idx`` [E] -> (bias_at [E, N],
+        jac_at [E, N, CS]), or (None, None) without them."""
+        if self.bias_at is None:
+            return None, None
+        return self.bias_at[idx], self.jac_at[idx]
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t, _ in self.leaves())
+
+
+def _tables(shared: PhotoShared, cam_pyr: CameraPyramid) -> FrameTables:
+    """The window's sampling tables, built here when the shared ones are
+    unset."""
+    if shared.tables is not None:
+        return shared.tables
+    return FrameTables.build(shared.feat_pyr, shared.grad_pyr, shared.mask_flat, cam_pyr)
 
 
 def _target_samples_cm(
@@ -201,15 +267,13 @@ def _target_samples_cm(
     packedT: torch.Tensor,
     dense: tuple,
     c_out: int,
-    mega: torch.Tensor | None = None,
     soft: bool = False,
 ):
     """Sample the target frame at the warped full-res coords for every
     pyramid level -> (list of [E, c_out, N] per level, within [E, N]).
-    With a mega table, levels 0 and 1 and the folded mask come from one
-    column gather per point; otherwise level 0 comes from one quad gather
-    that also yields the folded mask. The dense coarse levels come from
-    hat-weight matmuls; the rest from one quad gather each."""
+    Level 0 comes from one quad gather that also yields the folded mask,
+    the dense coarse levels from hat-weight matmuls, the rest from one
+    quad gather each."""
     cam0 = cam_pyr[0]
     cw = packedT.shape[0] // 4
     has_mask = cw == c_out + 1
@@ -219,28 +283,9 @@ def _target_samples_cm(
     qbase = frame * cam_pyr.total_quad_rows
     out = []
     within = None
-    mega_rows = None
     for lvl in range(cam_pyr.levels):
         cam_l = cam_pyr[lvl]
         ul, vl = interp.level_coords(u1, v1, cam_l.fx / cam0.fx, cam_l.fy / cam0.fy)
-        if mega is not None and lvl == 0:
-            r = (cam0.width + 1) * (cam0.height + 1)
-            mega_rows, wts, _, _ = interp.mega_gather(
-                mega, ul, vl, cam0.width, cam0.height, frame * r
-            )
-            out.append(interp.combine_quad_cm(mega_rows, wts, c_out, c_out + 1))
-            if soft:
-                within = interp.quad_bilinear_select_cm(mega_rows, wts, c_out, c_out + 1)
-            else:
-                within = interp.quad_nearest_select_cm(
-                    mega_rows, ul, vl, cam0.width, cam0.height, c_out, c_out + 1
-                )
-            continue
-        if mega is not None and lvl == 1:
-            out.append(interp.mega_level1(
-                mega_rows, ul, vl, cam_l.width, cam_l.height, c_out + 1, c_out
-            ))
-            continue
         if lvl >= dense_start:
             rows_cm = dense[lvl - dense_start][frame]  # [E, c_out, M_l]
             out.append(
@@ -340,10 +385,10 @@ def photometric_error(
         p0, p1, code0, scale0, kf0, shared, cam0, eps
     )
     c = shared.feat_pyr.shape[0]
-    _, packed_feat, _, dense_feat, _, mega_feat = _tables(shared, cam_pyr)
+    tables = _tables(shared, cam_pyr)
     f1s, within = _target_samples_cm(
-        shared.mask_flat, cam_pyr, u1, v1, fr1.base_pyr, packed_feat,
-        dense_feat, c, mega_feat, soft=soft,
+        shared.mask_flat, cam_pyr, u1, v1, fr1.base_pyr, tables.packed_feat,
+        tables.dense_feat, c, soft=soft,
     )
     g2 = (pos * within) ** 2
     err_total = torch.zeros_like(g2[:, 0])
@@ -409,10 +454,10 @@ def photo_prep(
         p0, p1, code0, scale0, kf0, shared, cam0, eps
     )
     c = shared.feat_pyr.shape[0]
-    packed_fg, _, dense_fg, _, mega_fg, _ = _tables(shared, cam_pyr)
+    tables = _tables(shared, cam_pyr)
     fgs, within = _target_samples_cm(
-        shared.mask_flat, cam_pyr, u1, v1, fr1.base_pyr, packed_fg,
-        dense_fg, 3 * c, mega_fg, soft=soft,
+        shared.mask_flat, cam_pyr, u1, v1, fr1.base_pyr, tables.packed_fg,
+        tables.dense_fg, 3 * c, soft=soft,
     )
     gate = pos * within  # [E, N]
 

@@ -29,9 +29,9 @@ from .sharded_ba import Mesh
 
 AXIS = sharded_ba.AXIS
 
-# WindowData fields and the axis their keyframe dimension lives on;
-# packed_fg / packed_feat ([cw, K*Tq]) are reshaped to [cw, K, Tq] and the
-# dense tables shard on their leading axis.
+# WindowData fields and the axis their keyframe dimension lives on; the
+# window's FrameTables go through FrameTables.map, which passes each table
+# with its own.
 _KF_AXIS = {
     "loc1d": 0,
     "homo": 0,
@@ -41,9 +41,6 @@ _KF_AXIS = {
     "grad_pyr": 2,
     "src_feats": 0,
     "avg_sq_bias": 0,
-    "bias_at": 0,
-    "jac_at": 0,
-    "pixel_fg": 0,
 }
 
 
@@ -57,38 +54,24 @@ def _own_block(x: torch.Tensor, axis: int, kp: int, mesh: Mesh) -> torch.Tensor:
 
 def shard_window(window: ba.WindowData, mesh: Mesh) -> ba.WindowData:
     """This rank's block of every per-keyframe table (the keyframe capacity
-    padded up to a multiple of the group's size); the mask is replicated
-    and the mega tables are dropped."""
+    padded up to a multiple of the group's size); the mask is replicated."""
     n = mesh.size
     k = window.bias_flat.shape[0]
     kp = -(-k // n) * n
-    updates = {}
-    for name, axis in _KF_AXIS.items():
-        val = getattr(window, name)
-        if val is not None:
-            updates[name] = _own_block(val, axis, kp, mesh)
-    for name in ("packed_fg", "packed_feat"):
-        val = getattr(window, name)
-        if val is not None:
-            updates[name] = _own_block(val.reshape(val.shape[0], k, -1), 1, kp, mesh)
-    updates["dense_fg"] = tuple(_own_block(d, 0, kp, mesh) for d in window.dense_fg)
-    updates["dense_feat"] = tuple(_own_block(d, 0, kp, mesh) for d in window.dense_feat)
+    own = lambda t, axis: _own_block(t, axis, kp, mesh)  # noqa: E731
+    updates = {name: own(getattr(window, name), axis) for name, axis in _KF_AXIS.items()}
     updates["mask_flat"] = window.mask_flat.to(mesh.device)
-    updates["mega_fg"] = None
-    updates["mega_feat"] = None
+    updates["tables"] = None if window.tables is None else window.tables.map(own)
     return window._replace(**updates)
 
 
 def store_bytes_per_device(window: ba.WindowData, n_devices: int) -> dict:
     """Replicated against keyframe-sharded bytes per rank of the window
     tables (the store's device footprint)."""
-    total = 0
-    for name in list(_KF_AXIS) + ["packed_fg", "packed_feat"]:
+    total = 0 if window.tables is None else window.tables.nbytes()
+    for name in _KF_AXIS:
         val = getattr(window, name)
-        if val is not None:
-            total += val.numel() * val.element_size()
-    for d in tuple(window.dense_fg) + tuple(window.dense_feat):
-        total += d.numel() * d.element_size()
+        total += val.numel() * val.element_size()
     return {"replicated_bytes": total, "sharded_bytes_per_device": -(-total // n_devices)}
 
 
@@ -108,32 +91,25 @@ def gather_window(window: ba.WindowData, ids: torch.Tensor, mesh: Mesh) -> ba.Wi
     """The boundary exchange: the compact window of rows ``ids`` from the
     ranks' blocks, summed by one all_reduce per dtype. Its traffic is the
     incident rows, independent of the store's size."""
-    parts = {}
-    for name, axis in _KF_AXIS.items():
-        val = getattr(window, name)
-        if val is not None:
-            parts[name] = _owned_rows(val, ids, axis, mesh)
-    for name in ("packed_fg", "packed_feat"):
-        val = getattr(window, name)
-        if val is not None:
-            parts[name] = _owned_rows(val, ids, 1, mesh)
-    for name in ("dense_fg", "dense_feat"):
-        for i, d in enumerate(getattr(window, name)):
-            parts[(name, i)] = _owned_rows(d, ids, 0, mesh)
+    parts = []
+
+    def owned(t, axis):
+        parts.append(_owned_rows(t, ids, axis, mesh))
+        return parts[-1]
+
+    fields = {name: owned(getattr(window, name), axis) for name, axis in _KF_AXIS.items()}
+    tables = None if window.tables is None else window.tables.map(owned)
     # one collective per dtype, in the same order on every rank (a set's
     # order of dtypes follows their addresses, which differ between ranks)
-    for dtype in sorted({t.dtype for t in parts.values()}, key=str):
-        keys = [key for key, t in parts.items() if t.dtype == dtype]
-        for key, summed in zip(keys, mesh.all_reduce(*(parts[key] for key in keys))):
-            parts[key] = summed
-    gathered = {}
-    for key, t in parts.items():
-        if isinstance(key, tuple):
-            continue
-        gathered[key] = t.reshape(t.shape[0], -1) if key.startswith("packed") else t
-    for name in ("dense_fg", "dense_feat"):
-        gathered[name] = tuple(parts[(name, i)] for i in range(len(getattr(window, name))))
-    return window._replace(**gathered, mega_fg=None, mega_feat=None)
+    for dtype in sorted({t.dtype for t in parts}, key=str):
+        at = [i for i, t in enumerate(parts) if t.dtype == dtype]
+        for i, summed in zip(at, mesh.all_reduce(*(parts[i] for i in at))):
+            parts[i] = summed
+    summed = iter(parts)
+    fields = {name: next(summed) for name in fields}
+    if tables is not None:
+        tables = tables.map(lambda t, axis: next(summed))
+    return window._replace(**fields, tables=tables)
 
 
 def sharded_window_run_ba(variables: Variables, window_sharded: ba.WindowData,
@@ -202,8 +178,9 @@ def run_rank(mesh: Mesh, *jobs):
             sharded_ba.variables_out(v), error=err.cpu(), iterations=iters, converged=conv,
             launches=photo_reduce.launches - launches, local_bytes=local_bytes,
             accounting=store_bytes_per_device(window, mesh.size),
-            shard_numel={name: getattr(win, name).numel()
-                         for name in ("feat_pyr", "grad_pyr", "packed_fg", "bias_flat")},
+            shard_numel={"feat_pyr": win.feat_pyr.numel(), "grad_pyr": win.grad_pyr.numel(),
+                         "packed_fg": win.tables.packed_fg.numel(),
+                         "bias_flat": win.bias_flat.numel()},
         ))
     return out
 

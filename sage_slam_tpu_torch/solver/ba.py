@@ -44,20 +44,9 @@ class WindowData(NamedTuple):
     src_feats: torch.Tensor  # [K, L, N, C] cached per-level source samples
     avg_sq_bias: torch.Tensor  # [K] masked mean of squared depth bias
     mask_flat: torch.Tensor  # [HW] shared video mask (full res)
-    # gather tables (photometric.build_photo_tables) and the source decode
-    # at the sampled pixels; filled by prepare_problem
-    packed_fg: torch.Tensor | None = None  # [4*(3C+1), K*Tq]
-    packed_feat: torch.Tensor | None = None  # [4*(C+1), K*Tq]
-    bias_at: torch.Tensor | None = None  # [K, N]
-    jac_at: torch.Tensor | None = None  # [K, N, CS]
-    dense_fg: tuple = ()  # per dense level: [K, 3C, M_l]
-    dense_feat: tuple = ()  # per dense level: [K, C, M_l]
-    # levels 0+1 in one gather row (photometric.USE_MEGA_TABLES, else None)
-    mega_fg: torch.Tensor | None = None  # [4*(3C+1)+9*3C+2, K*R]
-    mega_feat: torch.Tensor | None = None  # [4*(C+1)+9*C+2, K*R]
-    # the prep kernel's point-major sampling rows (photo_prep.pixel_table),
-    # kept by the keyframe store; filled by prepare_problem where missing
-    pixel_fg: torch.Tensor | None = None  # [K, T, PW]
+    # the sampling and decode tables, kept by the keyframe store; built by
+    # prepare_problem where missing
+    tables: photometric.FrameTables | None = None
 
 
 class EdgeTable(NamedTuple):
@@ -113,42 +102,25 @@ class BAProblem(NamedTuple):
 
 
 def prepare_problem(problem: BAProblem, cam_pyr: CameraPyramid) -> BAProblem:
-    """Precompute the window's gather tables and the source-pixel decode
-    tables, and the prep kernel's pixel table, where the window lacks them
-    (idempotent)."""
+    """Build the window's tables (FrameTables.build) where it lacks them,
+    and the prep kernel's pixel rows where tables converted from the JAX
+    package lack them (idempotent)."""
     w = problem.window
-    if w.packed_fg is None:
-        w = _gather_tables(w, cam_pyr)
-    if w.pixel_fg is None:
-        w = w._replace(pixel_fg=photo_prep.pixel_table(w.feat_pyr, w.grad_pyr, w.mask_flat, cam_pyr))
-    return problem if w is problem.window else problem._replace(window=w)
-
-
-def _gather_tables(w: WindowData, cam_pyr: CameraPyramid) -> WindowData:
-    c = w.feat_pyr.shape[0]
-    packed_fg, packed_feat, dense_fg, dense_feat, mega_fg, mega_feat = (
-        photometric.build_photo_tables(
-            w.feat_pyr.reshape(c, -1), w.grad_pyr.reshape(2, c, -1), w.mask_flat, cam_pyr
-        )
-    )
-    loc = w.loc1d.long()
-    kf = torch.arange(loc.shape[0], device=loc.device)[:, None]
-    return w._replace(
-        packed_fg=packed_fg,
-        packed_feat=packed_feat,
-        bias_at=w.bias_flat[kf, loc],  # [K, N]
-        jac_at=w.jac_flat[kf, loc],  # [K, N, CS]
-        dense_fg=dense_fg,
-        dense_feat=dense_feat,
-        mega_fg=mega_fg,
-        mega_feat=mega_feat,
-    )
+    if w.tables is None:
+        tables = photometric.FrameTables.build(w.feat_pyr, w.grad_pyr, w.mask_flat, cam_pyr,
+                                               w.loc1d, w.bias_flat, w.jac_flat)
+    elif w.tables.pixel_fg is None:
+        pixel_fg = photo_prep.pixel_table(w.feat_pyr, w.grad_pyr, w.mask_flat, cam_pyr)
+        tables = w.tables._replace(pixel_fg=pixel_fg)
+    else:
+        return problem
+    return problem._replace(window=w._replace(tables=tables))
 
 
 def slice_problem_keyframes(problem: BAProblem, kb: int, cam_pyr: CameraPyramid) -> BAProblem:
     """Restrict a full-capacity problem to its first ``kb`` keyframes
-    (views, no copies). Edge tables are untouched: every edge index must be
-    below kb. The mega tables are dropped, as in the JAX package."""
+    (views, no copies, but for the packed tables). Edge tables are
+    untouched: every edge index must be below kb."""
     return _select_keyframes(problem, slice(0, kb), None)
 
 
@@ -161,20 +133,12 @@ def compact_problem_keyframes(problem: BAProblem, ids: torch.Tensor,
     the window-incident keyframes, not by the store. Edge tables must
     already be in compact indices; ``pad_valid`` [kc] zeroes the priors of
     padding rows, so the compact total error differs from the full one by
-    a variable-independent constant. The mega tables are dropped."""
+    a variable-independent constant."""
     return _select_keyframes(problem, ids, pad_valid)
 
 
 def _select_keyframes(problem: BAProblem, sel, pad_valid) -> BAProblem:
     w = problem.window
-    k = w.bias_flat.shape[0]
-
-    def cols(t):
-        if t is None:
-            return None
-        cw = t.shape[0]
-        return t.reshape(cw, k, -1)[:, sel].reshape(cw, -1)
-
     window = w._replace(
         loc1d=w.loc1d[sel],
         homo=w.homo[sel],
@@ -184,15 +148,7 @@ def _select_keyframes(problem: BAProblem, sel, pad_valid) -> BAProblem:
         grad_pyr=w.grad_pyr[:, :, sel],
         src_feats=w.src_feats[sel],
         avg_sq_bias=w.avg_sq_bias[sel],
-        packed_fg=cols(w.packed_fg),
-        packed_feat=cols(w.packed_feat),
-        bias_at=None if w.bias_at is None else w.bias_at[sel],
-        jac_at=None if w.jac_at is None else w.jac_at[sel],
-        dense_fg=tuple(d[sel] for d in w.dense_fg),
-        dense_feat=tuple(d[sel] for d in w.dense_feat),
-        mega_fg=None,
-        mega_feat=None,
-        pixel_fg=None if w.pixel_fg is None else w.pixel_fg[sel],
+        tables=None if w.tables is None else w.tables.rows(sel),
     )
     pr = problem.priors
     gate = (lambda x: x[sel]) if pad_valid is None else (lambda x: x[sel] * pad_valid)
@@ -213,13 +169,8 @@ def _photo_inputs(window: WindowData, e: EdgeTable):
     c = window.feat_pyr.shape[0]
     cs = window.jac_flat.shape[-1]
     kf0 = photometric.PhotoKf0(
-        loc1d=window.loc1d[e.i0],
-        homo0=window.homo[e.i0],
-        src_feats=window.src_feats[e.i0],
-        base_hw=e.i0 * hw,
-        base_pyr=e.i0 * t,
-        bias_at=None if window.bias_at is None else window.bias_at[e.i0],
-        jac_at=None if window.jac_at is None else window.jac_at[e.i0],
+        window.loc1d[e.i0], window.homo[e.i0], window.src_feats[e.i0], e.i0 * hw, e.i0 * t,
+        *_source_at(window, e.i0),
     )
     fr1 = photometric.PhotoFr1(base_pyr=e.i1 * t)
     shared = photometric.PhotoShared(
@@ -228,14 +179,14 @@ def _photo_inputs(window: WindowData, e: EdgeTable):
         feat_pyr=window.feat_pyr.reshape(c, -1),
         grad_pyr=window.grad_pyr.reshape(2, c, -1),
         mask_flat=window.mask_flat,
-        packed_fg=window.packed_fg,
-        packed_feat=window.packed_feat,
-        dense_fg=window.dense_fg,
-        dense_feat=window.dense_feat,
-        mega_fg=window.mega_fg,
-        mega_feat=window.mega_feat,
+        tables=window.tables,
     )
     return kf0, fr1, shared
+
+
+def _source_at(window: WindowData, i0: torch.Tensor):
+    """The decode tables at the source keyframes i0, or (None, None)."""
+    return (None, None) if window.tables is None else window.tables.source_at(i0)
 
 
 def _photo_prep(variables: Variables, window: WindowData, e: EdgeTable, cam_pyr, eps, soft):
@@ -243,10 +194,11 @@ def _photo_prep(variables: Variables, window: WindowData, e: EdgeTable, cam_pyr,
     tensors (ops/photo_prep), the plain chain (photometric.photo_prep) on
     CPU tensors."""
     pose = variables.pose
+    t = window.tables
     if photo_prep.uses_kernel(
-        variables.scale, pose.rot, pose.trans, variables.code, window.homo, window.bias_at,
-        window.jac_at, window.bias_flat, window.jac_flat, window.src_feats, window.feat_pyr,
-        window.grad_pyr, window.pixel_fg,
+        variables.scale, pose.rot, pose.trans, variables.code, window.homo, window.bias_flat,
+        window.jac_flat, window.src_feats, window.feat_pyr, window.grad_pyr,
+        *(() if t is None else (t.bias_at, t.jac_at, t.pixel_fg)),
     ):
         out = photo_prep.photo_prep_edges(
             pose.rot, pose.trans, variables.code, variables.scale, e.i0, e.i1, window, cam_pyr,
@@ -264,13 +216,8 @@ def _photo_prep(variables: Variables, window: WindowData, e: EdgeTable, cam_pyr,
 def _geo_inputs(window: WindowData, e: EdgeTable, variables: Variables, cam, which):
     hw = window.bias_flat.shape[-1]
     cs = window.jac_flat.shape[-1]
-    kf0 = geometric.GeoKf0(
-        loc1d=window.loc1d[e.i0],
-        homo0=window.homo[e.i0],
-        base_hw=e.i0 * hw,
-        bias_at=None if window.bias_at is None else window.bias_at[e.i0],
-        jac_at=None if window.jac_at is None else window.jac_at[e.i0],
-    )
+    kf0 = geometric.GeoKf0(window.loc1d[e.i0], window.homo[e.i0], e.i0 * hw,
+                           *_source_at(window, e.i0))
     kf1 = geometric.GeoKf1(base_hw=e.i1 * hw)
     # frame-1 decode + quad pack once per keyframe per linearization;
     # edges sharing a target keyframe reuse the table
@@ -355,19 +302,10 @@ def linearize(
             ata, atb, err, _ = photometric.photo_normalize(
                 ata, atb, err_t, n_inl, cfg.photo_factor_weights
             )
-            if psd:
-                ata = graph.psd_correct(ata)
-            gidx = torch.cat(
-                [
-                    graph.slot_indices(pe.i0, bd, sel_pose),
-                    graph.slot_indices(pe.i1, bd, sel_pose),
-                    graph.slot_indices(pe.i0, bd, sel_code),
-                    graph.slot_indices(pe.i0, bd, sel_scale),
-                ],
-                dim=-1,
-            )  # [E, 13+CS]
-            h, b = graph.scatter_hessian(h, b, gidx, ata, atb, pe.valid, bd)
-            total_err = total_err + torch.sum(err * pe.valid)
+            h, b, total_err = _add_block(
+                h, b, total_err, bd, psd, ata, atb, err, pe.valid,
+                (pe.i0, sel_pose), (pe.i1, sel_pose), (pe.i0, sel_code), (pe.i0, sel_scale),
+            )
 
     # ---- geometric edges: vars (p0, p1, c0, c1, s0, s1), dim 14+2CS ----
     with timing.span("lin.geo"):
@@ -385,21 +323,11 @@ def linearize(
                 kf0, kf1, gshared, cam_pyr[0], cfg.geo_factor_weight,
                 loss_param, cfg.dpt_eps,
             )
-            if psd:
-                ata = graph.psd_correct(ata)
-            gidx = torch.cat(
-                [
-                    graph.slot_indices(ge.i0, bd, sel_pose),
-                    graph.slot_indices(ge.i1, bd, sel_pose),
-                    graph.slot_indices(ge.i0, bd, sel_code),
-                    graph.slot_indices(ge.i1, bd, sel_code),
-                    graph.slot_indices(ge.i0, bd, sel_scale),
-                    graph.slot_indices(ge.i1, bd, sel_scale),
-                ],
-                dim=-1,
-            )  # [E, 14+2CS]
-            h, b = graph.scatter_hessian(h, b, gidx, ata, atb, ge.valid, bd)
-            total_err = total_err + torch.sum(err * ge.valid)
+            h, b, total_err = _add_block(
+                h, b, total_err, bd, psd, ata, atb, err, ge.valid,
+                (ge.i0, sel_pose), (ge.i1, sel_pose), (ge.i0, sel_code), (ge.i1, sel_code),
+                (ge.i0, sel_scale), (ge.i1, sel_scale),
+            )
 
     # ---- reprojection edges: vars (p0, p1, c0, s0), dim 13+CS ----
     with timing.span("lin.reproj"):
@@ -408,48 +336,44 @@ def linearize(
             re = problem.reproj_edges
             timing.count("edges", re.i0.shape[0])
             ata, atb, err, _ = rp_ops.reprojection_jac_error(*rp_args)
-            if psd:
-                ata = graph.psd_correct(ata)
-            gidx = torch.cat(
-                [
-                    graph.slot_indices(re.i0, bd, sel_pose),
-                    graph.slot_indices(re.i1, bd, sel_pose),
-                    graph.slot_indices(re.i0, bd, sel_code),
-                    graph.slot_indices(re.i0, bd, sel_scale),
-                ],
-                dim=-1,
+            h, b, total_err = _add_block(
+                h, b, total_err, bd, psd, ata, atb, err, re.valid,
+                (re.i0, sel_pose), (re.i1, sel_pose), (re.i0, sel_code), (re.i0, sel_scale),
             )
-            h, b = graph.scatter_hessian(h, b, gidx, ata, atb, re.valid, bd)
-            total_err = total_err + torch.sum(err * re.valid)
 
-    # ---- priors ----
+    # ---- priors (no PSD correction) ----
     with timing.span("lin.priors"):
         pr = problem.priors
         kf_range = torch.arange(k, device=dev)
-        ata_c, atb_c, err_c = priors.code_prior(
+        ata, atb, err = priors.code_prior(
             variables.code, torch.zeros_like(variables.code), cfg.code_factor_weight
         )
-        h, b = graph.scatter_hessian(
-            h, b, graph.slot_indices(kf_range, bd, sel_code), ata_c, atb_c, pr.code_valid, bd
-        )
-        total_err = total_err + torch.sum(err_c * pr.code_valid)
-
-        ata_s, atb_s, err_s = priors.scale_prior(
+        h, b, total_err = _add_block(h, b, total_err, bd, False, ata, atb, err, pr.code_valid,
+                                     (kf_range, sel_code))
+        ata, atb, err = priors.scale_prior(
             variables.scale, pr.scale_init, cfg.init_scale_prior_weight
         )
-        h, b = graph.scatter_hessian(
-            h, b, graph.slot_indices(kf_range, bd, sel_scale), ata_s, atb_s, pr.scale_valid, bd
-        )
-        total_err = total_err + torch.sum(err_s * pr.scale_valid)
-
-        ata_p, atb_p, err_p = priors.pose_prior(
+        h, b, total_err = _add_block(h, b, total_err, bd, False, ata, atb, err, pr.scale_valid,
+                                     (kf_range, sel_scale))
+        ata, atb, err = priors.pose_prior(
             variables.pose, pr.pose_target, cfg.init_pose_prior_weight
         )
-        h, b = graph.scatter_hessian(
-            h, b, graph.slot_indices(kf_range, bd, sel_pose), ata_p, atb_p, pr.pose_valid, bd
-        )
-        total_err = total_err + torch.sum(err_p * pr.pose_valid)
+        h, b, total_err = _add_block(h, b, total_err, bd, False, ata, atb, err, pr.pose_valid,
+                                     (kf_range, sel_pose))
     return h, b, total_err
+
+
+def _add_block(h, b, total_err, bd: int, psd: bool, ata, atb, err, valid, *slots):
+    """One factor family into the system -> (h, b, total_err): ata
+    PSD-corrected where ``psd`` is set, its blocks scattered at the slots
+    (keyframe indices [E], slot selection [S]) in their order, and
+    sum(err * valid) added to the error."""
+    if psd:
+        ata = graph.psd_correct(ata)
+    idx = [graph.slot_indices(kf, bd, sel) for kf, sel in slots]
+    gidx = idx[0] if len(idx) == 1 else torch.cat(idx, dim=-1)
+    h, b = graph.scatter_hessian(h, b, gidx, ata, atb, valid, bd)
+    return h, b, total_err + torch.sum(err * valid)
 
 
 def total_error(variables: Variables, problem: BAProblem, cam_pyr, cfg):

@@ -20,9 +20,6 @@ the device, with float32 arithmetic (numpy), so they match JAX's: one read
 per inner damping step, which carries the refreshed error, the convergence
 flag and the first candidate's error together. An iteration that accepts
 its first candidate costs one read.
-
-With photometric.USE_MEGA_TABLES on, the target's levels 0 and 1 come from
-one mega row per point (built in TrackerTarget.with_packed), as in JAX.
 """
 
 from __future__ import annotations
@@ -53,34 +50,20 @@ class TrackerRef(NamedTuple):
 
 class TrackerTarget(NamedTuple):
     """Frame-to-track data: its pyramids and mask, and optionally its
-    sampling tables (ops/photometric.build_photo_tables with one frame:
-    packed tables [4*(3C+1), Tq] / [4*(C+1), Tq], dense levels
-    [1, 3C, M_l] / [1, C, M_l], and the mega tables when they are on)."""
+    sampling tables (ops/photometric.FrameTables of the one frame)."""
 
     feat_pyr: torch.Tensor  # [C, T]
     grad_pyr: torch.Tensor  # [2, C, T]
     mask_flat: torch.Tensor  # [HW] full-res video mask
-    packed_fg: torch.Tensor | None = None
-    packed_feat: torch.Tensor | None = None
-    dense_fg: tuple = ()
-    dense_feat: tuple = ()
-    mega_fg: torch.Tensor | None = None  # levels 0+1 in one gather row
-    mega_feat: torch.Tensor | None = None
+    tables: photometric.FrameTables | None = None
 
     def with_packed(self, cam_pyr: CameraPyramid) -> "TrackerTarget":
         """This target with its sampling tables built (once, before the LM
         loop)."""
-        if self.packed_fg is not None:
+        if self.tables is not None:
             return self
-        tables = self._tables(cam_pyr)
-        return self._replace(packed_fg=tables[0], packed_feat=tables[1], dense_fg=tables[2],
-                             dense_feat=tables[3], mega_fg=tables[4], mega_feat=tables[5])
-
-    def _tables(self, cam_pyr: CameraPyramid):
-        if self.packed_fg is not None:
-            return (self.packed_fg, self.packed_feat, self.dense_fg, self.dense_feat,
-                    self.mega_fg, self.mega_feat)
-        return photometric.build_photo_tables(self.feat_pyr, self.grad_pyr, self.mask_flat, cam_pyr)
+        return self._replace(tables=photometric.FrameTables.build(
+            self.feat_pyr, self.grad_pyr, self.mask_flat, cam_pyr))
 
 
 def _photo_warp(rot10, t10, ref: TrackerRef, cam0, eps: float):
@@ -99,15 +82,15 @@ def _photo_warp(rot10, t10, ref: TrackerRef, cam0, eps: float):
 def _samples(target: TrackerTarget, cam_pyr: CameraPyramid, u, v, with_grad: bool, soft: bool):
     """The frame sampled at (u, v) on every level -> (per level [3C, N]
     (features then x and y gradients) or [C, N], within [N])."""
-    packed_fg, packed_feat, dense_fg, dense_feat, mega_fg, mega_feat = target._tables(cam_pyr)
+    tables = target.with_packed(cam_pyr).tables
     c = target.feat_pyr.shape[0]
     if with_grad:
-        packed, dense, mega, c_out = packed_fg, dense_fg, mega_fg, 3 * c
+        packed, dense, c_out = tables.packed_fg, tables.dense_fg, 3 * c
     else:
-        packed, dense, mega, c_out = packed_feat, dense_feat, mega_feat, c
+        packed, dense, c_out = tables.packed_feat, tables.dense_feat, c
     base = torch.zeros(1, dtype=torch.int64, device=u.device)
     out, within = photometric._target_samples_cm(
-        target.mask_flat, cam_pyr, u[None], v[None], base, packed, dense, c_out, mega, soft=soft
+        target.mask_flat, cam_pyr, u[None], v[None], base, packed, dense, c_out, soft=soft
     )
     return [o[0] for o in out], within[0]
 

@@ -69,10 +69,10 @@ def test_linearize_and_total_error_match_jax(case):
     # the port's own tables equal the ones carried over from JAX
     tp_carried = convert.problem_from_numpy(jax.tree.map(np.asarray, pj), device="cpu")
     np.testing.assert_array_equal(
-        tpp.window.packed_fg.numpy(), tp_carried.window.packed_fg.numpy()
+        tpp.window.tables.packed_fg.numpy(), tp_carried.window.tables.packed_fg.numpy()
     )
     np.testing.assert_array_equal(
-        tpp.window.jac_at.numpy(), tp_carried.window.jac_at.numpy()
+        tpp.window.tables.jac_at.numpy(), tp_carried.window.tables.jac_at.numpy()
     )
 
 

@@ -271,7 +271,7 @@ def test_prep_bound_is_chip_smokes_less_the_target_tables(cs):
     prep = tba._photo_prep(v, p.window, p.photo_edges, pyr, 1e-6, True)
     _, smoke_bytes = chip_smoke.prep_bound(prep, p, slice(None), 1.0)
     pe, w = p.photo_edges, p.window
-    targets = len(set(pe.i1.tolist())) * w.pixel_fg[0].numel() * 4
+    targets = len(set(pe.i1.tolist())) * w.tables.pixel_fg[0].numel() * 4
     sources = len(set(pe.i0.tolist()))
     _, nbytes = prep_bound.prep_bound(pe.i0.shape[0], pyr.levels, w.src_feats.shape[-1],
                                       w.loc1d.shape[1], cs, sources, 1.0)

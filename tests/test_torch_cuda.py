@@ -159,7 +159,8 @@ def test_build_frame_card_matches_cpu(cuda):
     assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
     for name in ("bias_flat", "jac_flat", "feat_pyr", "grad_pyr", "feat_desc_flat", "src_feats",
                  "packed_fg", "packed_feat", "bias_at", "jac_at"):
-        g, c = getattr(fr_g, name).cpu().double(), getattr(fr_c, name).double()
+        of = lambda fr: getattr(fr.tables if name in fr.tables._fields else fr, name)  # noqa: E731
+        g, c = of(fr_g).cpu().double(), of(fr_c).double()
         assert float((g - c).abs().max()) <= 1e-3 * float(c.abs().max()), name
 
 
@@ -266,7 +267,9 @@ def _bench_prep(dev, soft, flat=False, cs=16, k=8, n_photo=24):
     gen = torch.Generator().manual_seed(7)
     v = Variables(v.pose, 0.1 * torch.randn(v.code.shape, generator=gen).to(dev),
                   1.0 + 0.1 * torch.randn(v.scale.shape, generator=gen).to(dev))
-    w = p.window._replace(bias_at=None, jac_at=None) if flat else p.window
+    w = p.window
+    if flat:
+        w = w._replace(tables=w.tables._replace(bias_at=None, jac_at=None))
     pe, eps = p.photo_edges, MapperConfig().dpt_eps
     got = ba._photo_prep(v, w, pe, pyr, eps, soft)
     plain = lambda v, w: photometric.photo_prep(  # noqa: E731

@@ -219,6 +219,17 @@ def test_dense_bilinear_and_locations_match_jax():
     np.testing.assert_array_equal(ly.numpy(), np.asarray(jy))
 
 
+def test_valid_locations_exact():
+    rng = np.random.default_rng(3)
+    h, w = 12, 17
+    mask = (rng.random(h * w) > 0.4).astype(np.float32)
+    fx, fy, cx, cy = 18.7, 19.1, 8.0, 5.5
+    homo_j, valid_j = jinterp.valid_locations(jnp.asarray(mask), w, fx, fy, cx, cy)
+    homo_t, valid_t = tinterp.valid_locations(torch.from_numpy(mask), w, fx, fy, cx, cy)
+    np.testing.assert_array_equal(homo_t.numpy(), np.asarray(homo_j))
+    np.testing.assert_array_equal(valid_t.numpy(), np.asarray(valid_j))
+
+
 def test_pyramid_matches_jax():
     rng = np.random.default_rng(5)
     feat = rng.standard_normal((4, 32, 40)).astype(np.float32)

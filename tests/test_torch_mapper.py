@@ -141,15 +141,19 @@ def test_build_frame_matches_jax():
     tfr = pair.tm.build_frame(0.1, pair.scene.images[1], loc1d=np.asarray(fr.loc1d))
     np.testing.assert_array_equal(tfr.loc1d.numpy(), np.asarray(fr.loc1d))
     np.testing.assert_allclose(tfr.homo.numpy(), np.asarray(fr.homo), rtol=1e-6, atol=1e-7)
+    tab = tfr.tables  # a frame's tables lead with a keyframe axis of 1, JAX's decode tables none
+    tables = {"packed_fg": tab.packed_fg, "packed_feat": tab.packed_feat, "bias_at": tab.bias_at[0],
+              "jac_at": tab.jac_at[0]}
     for name in ("bias_flat", "jac_flat", "feat_pyr", "grad_pyr", "src_feats", "packed_fg",
                  "packed_feat", "bias_at", "jac_at", "avg_sq_bias"):
-        t, j = getattr(tfr, name).numpy(), np.asarray(getattr(fr, name))
+        t = (tables[name] if name in tables else getattr(tfr, name)).numpy()
+        j = np.asarray(getattr(fr, name))
         assert t.shape == j.shape, name
         np.testing.assert_allclose(t, j, rtol=0, atol=2e-5 * max(np.abs(j).max(), 1e-6), err_msg=name)
     np.testing.assert_allclose(tfr.feat_desc_flat.numpy(), np.asarray(fr.feat_desc_flat), atol=2e-5)
-    for t, j in zip(tfr.dense_fg + tfr.dense_feat, fr.dense_fg + fr.dense_feat):
+    for t, j in zip(tab.dense_fg + tab.dense_feat, fr.dense_fg + fr.dense_feat):
         np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=2e-5 * np.abs(np.asarray(j)).max())
-    assert len(tfr.dense_fg) == len(fr.dense_fg) and tfr.scale == fr.scale == 1.0
+    assert len(tab.dense_fg) == len(fr.dense_fg) and tfr.scale == fr.scale == 1.0
     # the default draw is seeded from the timestamp and lies in the mask
     drawn = pair.tm.build_frame(0.1, pair.scene.images[1])
     again = pair.tm.sample_locations(0.1)
@@ -191,11 +195,12 @@ def test_store_rows_match_jax_store(sequence):
     pair, _ = sequence
     n = pair.tm.store.num_active
     js, ts = pair.jm.store, pair.tm.store
-    for name in ("loc1d", "bias_flat", "src_feats", "avg_sq_bias", "bias_at"):
+    for name in ("loc1d", "bias_flat", "src_feats", "avg_sq_bias"):
         np.testing.assert_array_equal(getattr(ts, name)[:n].numpy(), np.asarray(getattr(js, name))[:n])
+    np.testing.assert_array_equal(ts.tables.bias_at[:n].numpy(), np.asarray(js.bias_at)[:n])
     np.testing.assert_array_equal(ts.feat_pyr[:, :n].numpy(), np.asarray(js.feat_pyr)[:, :n])
-    np.testing.assert_array_equal(ts.packed_fg.numpy(), np.asarray(js.packed_fg))
-    for t, j in zip(ts.dense_feat, js.dense_feat):
+    np.testing.assert_array_equal(ts.tables.packed_fg.numpy(), np.asarray(js.packed_fg))
+    for t, j in zip(ts.tables.dense_feat, js.dense_feat):
         np.testing.assert_array_equal(t.numpy(), np.asarray(j))
     assert ts.links == js.links
     np.testing.assert_array_equal(ts.version, js.version)
@@ -327,15 +332,16 @@ def test_store_keeps_each_keyframes_pixel_rows():
     st = tm.store
     n = st.num_active
     want = photo_prep.pixel_table(st.feat_pyr[:, :n], st.grad_pyr[:, :, :n], tm.mask_flat, tm.cam_pyr)
-    assert n == 4 and torch.equal(st.pixel_fg[:n], want)
+    assert n == 4 and torch.equal(st.tables.pixel_fg[:n], want)
     with st.lock:
         snap_n, _, snap_vars = st.snapshot()
         problem = tm._compact_step_inputs(snap_n, snap_vars, True)[0]
     w = problem.window  # the n keyframes, then rows the store never wrote (all zero)
     built = photo_prep.pixel_table(w.feat_pyr, w.grad_pyr, w.mask_flat, tm.cam_pyr)
-    assert w.pixel_fg.shape[0] > n and torch.equal(w.pixel_fg[:n], built[:n])
-    assert not w.pixel_fg[n:].any() and not w.feat_pyr[:, n:].any()
-    assert tba.prepare_problem(problem, tm.cam_pyr).window.pixel_fg is w.pixel_fg
+    pixel = w.tables.pixel_fg
+    assert pixel.shape[0] > n and torch.equal(pixel[:n], built[:n])
+    assert not pixel[n:].any() and not w.feat_pyr[:, n:].any()
+    assert tba.prepare_problem(problem, tm.cam_pyr).window.tables.pixel_fg is pixel
     with pytest.raises(ValueError, match="pixel rows"):
         st.add(convert.frame_from_numpy(pair.jax_frame(4), device="cpu"))
     assert st.num_active == n
@@ -396,7 +402,7 @@ def test_mapper_contracts(tmp_path):
                            pair.tm.depth_net, pair.tm.feat_net)
     store = KeyframeStore(1, 4, 6, 2, 3, 10, levels=2, device="cpu")
     fr = dataclasses.replace(
-        convert.frame_from_numpy(pair.jax_frame(1), device="cpu"), packed_fg=None
+        convert.frame_from_numpy(pair.jax_frame(1), device="cpu"), tables=None
     )
     small = dataclasses.replace(
         fr, loc1d=fr.loc1d[:4], homo=fr.homo[:4], bias_flat=fr.bias_flat[:6],
@@ -419,7 +425,7 @@ def test_clone_copies_the_state_and_steps_alike():
     err_a, err_b = pair.tm.mapping_step(), twin.mapping_step()
     assert err_a == err_b and twin.last_step_iters == pair.tm.last_step_iters
     assert torch.equal(twin.store.variables.code, pair.tm.store.variables.code)
-    assert torch.equal(twin.store.packed_fg, pair.tm.store.packed_fg)
+    assert torch.equal(twin.store.tables.packed_fg, pair.tm.store.tables.packed_fg)
     np.testing.assert_array_equal(twin.store.version, pair.tm.store.version)
     loc = torch.as_tensor(np.arange(0, 64))
     fr = twin.build_frame(0.7, pair.scene.images[5], loc1d=loc)

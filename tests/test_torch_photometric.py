@@ -206,14 +206,69 @@ def test_photo_tables_and_source_features_match_jax(graft_case):
     )
     for a, b in zip(tables_t[:2], tables_j[:2]):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert len(tables_t) == 4
     for ta, tb in zip(tables_t[2:4], tables_j[2:4]):
         assert len(ta) == len(tb)
         for a, b in zip(ta, tb):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-    assert tables_j[4] is None and tables_j[5] is None  # mega tables: off
+    assert tables_j[4] is None and tables_j[5] is None  # JAX's mega tables: off
     src_j = jph.sample_source_features(w.feat_pyr[:, 0], w.loc1d[0], pyr)
     src_t = tph.sample_source_features(tw.feat_pyr[:, 0], tw.loc1d[0], tpyr)
     np.testing.assert_allclose(src_t.numpy(), np.asarray(src_j), rtol=1e-6, atol=1e-6)
+
+
+def _frames_tables(w, sel, pyr):
+    """FrameTables.build over the window's frames ``sel`` alone."""
+    return tph.FrameTables.build(w.feat_pyr[:, sel], w.grad_pyr[:, :, sel], w.mask_flat, pyr,
+                                 w.loc1d[sel], w.bias_flat[sel], w.jac_flat[sel])
+
+
+def _assert_tables_equal(got, want):
+    assert [t is None for t in got] == [t is None for t in want]
+    assert len(got.dense_fg) == len(want.dense_fg) > 0
+    assert len(got.dense_feat) == len(want.dense_feat)
+    pairs = list(zip(got.leaves(), want.leaves()))
+    assert len(pairs) == len(want.leaves()) == 4 + len(want.dense_fg) + len(want.dense_feat) + 1
+    for (a, axis), (b, _) in pairs:
+        assert a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b), axis
+
+
+@pytest.mark.parametrize("case", ["rows-slice", "rows-ids", "rows-one-id", "store-write"])
+def test_frame_tables_keyframe_rows_equal_their_frames_alone(graft_case, case):
+    """Every way keyframe rows leave or enter FrameTables gives, bit for
+    bit, the tables FrameTables.build makes from those frames alone: rows
+    with a slice (slice_problem_keyframes), with an id tensor
+    (compact_problem_keyframes, one gather a table), with one id
+    (SlamSystem._store_frame_view: views of the store), and a store's
+    zeros + write of K=1 frames in any order (KeyframeStore.write_tables,
+    rows never written staying zero)."""
+    *_, tv, tp, tpyr = graft_case
+    w = tp.window._replace(tables=None)
+    full = _frames_tables(w, slice(None), tpyr)
+    if case == "rows-slice":
+        got = tba.slice_problem_keyframes(tp._replace(window=w._replace(tables=full)), 3, tpyr)
+        _assert_tables_equal(got.window.tables, _frames_tables(w, slice(0, 3), tpyr))
+    elif case == "rows-ids":
+        ids = torch.tensor([3, 0, 2])
+        got = tba.compact_problem_keyframes(tp._replace(window=w._replace(tables=full)), ids,
+                                            torch.ones(3), tpyr)
+        _assert_tables_equal(got.window.tables, _frames_tables(w, ids, tpyr))
+    elif case == "rows-one-id":
+        got = full.rows(2)
+        _assert_tables_equal(got, _frames_tables(w, slice(2, 3), tpyr))
+        for (a, _), (b, axis) in zip(got.leaves(), full.leaves()):  # views: no copy
+            assert a.data_ptr() == b.select(axis, 2).data_ptr()
+    else:
+        one = _frames_tables(w, slice(0, 1), tpyr)
+        store = tph.FrameTables.zeros(6, one)
+        for i in (3, 0, 2, 1):
+            store.write(i + 1, _frames_tables(w, slice(i, i + 1), tpyr))
+        _assert_tables_equal(store.rows(slice(1, 5)), full)
+        assert all(not t.select(axis, 0).any() and not t.select(axis, 5).any()
+                   for t, axis in store.leaves())
+        assert store.nbytes() == full.nbytes() * 6 // 4
+        with pytest.raises(ValueError, match="pixel rows"):
+            store.write(0, one._replace(pixel_fg=None))
 
 
 # ---- the prep kernel (ops/photo_prep, csrc/photo_prep.cu): what runs here ----
@@ -266,18 +321,17 @@ def _sample_coords(cam0, e, n, seed):
 
 
 @pytest.mark.parametrize("level", [0, 1, 2, 3])
-def test_pixel_table_bilinear_equals_quad_dense_and_mega(graft_case, level, monkeypatch):
+def test_pixel_table_bilinear_equals_quad_and_dense(graft_case, level):
     """The identity the prep kernel rests on: one zero-padded bilinear
     gather from pixel_table's rows gives, bit for bit, the quad gather from
     packed_fg at every level (the gate's mask column too, soft and hard),
     and within float32 roundoff the hat-weight matmul
-    (interp.dense_bilinear_cm) of the coarse levels and the mega table's
-    levels 0 and 1, including coordinates outside the image and NaN."""
+    (interp.dense_bilinear_cm) of the coarse levels, including coordinates
+    outside the image and NaN."""
     *_, tp, tpyr = graft_case
     w = tp.window
     c = w.feat_pyr.shape[0]
-    monkeypatch.setattr(tph, "USE_MEGA_TABLES", True)
-    packed_fg, _, dense_fg, _, mega_fg, _ = tph.build_photo_tables(
+    packed_fg, _, dense_fg, _ = tph.build_photo_tables(
         w.feat_pyr.reshape(c, -1), w.grad_pyr.reshape(2, c, -1), w.mask_flat, tpyr)
     pixel = tprep.pixel_table(w.feat_pyr, w.grad_pyr, w.mask_flat, tpyr)
     assert pixel.shape == (4, tpyr.total_pixels, tprep.row_width(c)) and pixel.shape[-1] % 4 == 0
@@ -297,22 +351,13 @@ def test_pixel_table_bilinear_equals_quad_dense_and_mega(graft_case, level, monk
         hat = interp.dense_bilinear_cm(dense_fg[dense.index(level)][frame], ul, vl, cam.width, cam.height)
         np.testing.assert_allclose(got.numpy(), hat.numpy(), rtol=1e-5,
                                    atol=1e-6 * float(hat.nan_to_num().abs().max()))
-    r = (cam0.width + 1) * (cam0.height + 1)
-    ul0, vl0 = interp.level_coords(u, v, 1.0, 1.0)
-    mega_rows, mwts, _, _ = interp.mega_gather(mega_fg, ul0, vl0, cam0.width, cam0.height, frame * r)
     if level == 0:
-        mega = interp.combine_quad_cm(mega_rows, mwts, 3 * c, 3 * c + 1)
         soft = _pixel_bilinear(pixel, frame, ul, vl, cam.width, cam.height, 0, 3 * c, 1)[:, 0]
         np.testing.assert_array_equal(
             soft.numpy(), interp.quad_bilinear_select_cm(rowv, wts, 3 * c, 3 * c + 1).numpy())
         hard = _pixel_nearest(pixel, frame, ul, vl, cam.width, cam.height, 3 * c)
         np.testing.assert_array_equal(hard.numpy(), interp.quad_nearest_select_cm(
             rowv, ul, vl, cam.width, cam.height, 3 * c, 3 * c + 1).numpy())
-    elif level == 1:
-        mega = interp.mega_level1(mega_rows, ul, vl, cam.width, cam.height, 3 * c + 1, 3 * c)
-    else:
-        return
-    np.testing.assert_allclose(got.numpy(), mega.numpy(), rtol=1e-6, atol=1e-6)
 
 
 def test_photo_prep_on_cpu_takes_the_plain_path(graft_case):
@@ -325,7 +370,7 @@ def test_photo_prep_on_cpu_takes_the_plain_path(graft_case):
         for a, b in zip(got, _torch_prep(tv, tp, tpyr, soft)):
             np.testing.assert_array_equal(a.numpy(), b.numpy())
     prepared = tba.prepare_problem(tp, tpyr)
-    assert prepared.window.pixel_fg.shape == (4, tpyr.total_pixels, tprep.row_width(16))
+    assert prepared.window.tables.pixel_fg.shape == (4, tpyr.total_pixels, tprep.row_width(16))
     tba.linearize(tv, prepared, tpyr, MapperConfig())
     assert tprep.photo_prep_edges.launches == before
 
@@ -360,14 +405,16 @@ def test_photo_prep_dispatch_on_the_card(graft_case, graph, monkeypatch):
 def _check_case(case, tv, tp, tpyr):
     """(rot, trans, code, scale, i0, i1, window) with one defect."""
     w = tp.window
-    pixel = w.pixel_fg
+    pixel = w.tables.pixel_fg
+    tables = lambda **kw: w._replace(tables=w.tables._replace(**kw))  # noqa: E731
     args = dict(rot=tv.pose.rot, trans=tv.pose.trans, code=tv.code, scale=tv.scale,
                 i0=tp.photo_edges.i0, i1=tp.photo_edges.i1, window=w)
     k, n = w.loc1d.shape
     if case == "dim-over-45":  # tables of a 33-entry code, consistent but over the widest kernel
         hw = w.bias_flat.shape[1]
         args["code"] = torch.zeros((k, 33))
-        args["window"] = w._replace(jac_flat=torch.zeros((k, hw, 33)), jac_at=torch.zeros((k, n, 33)))
+        args["window"] = tables(jac_at=torch.zeros((k, n, 33)))._replace(
+            jac_flat=torch.zeros((k, hw, 33)))
     elif case == "levels-over-max":
         args["window"] = w._replace(src_feats=torch.zeros((k, tprep.MAX_LEVELS + 1, n, 16)))
     elif case == "float64-homo":
@@ -375,18 +422,18 @@ def _check_case(case, tv, tp, tpyr):
     elif case == "int32-edges":
         args["i0"] = args["i0"].int()
     elif case == "non-contiguous-table":
-        args["window"] = w._replace(pixel_fg=pixel.transpose(0, 1).contiguous().transpose(0, 1))
+        args["window"] = tables(pixel_fg=pixel.transpose(0, 1).contiguous().transpose(0, 1))
     elif case == "misaligned-table":
         flat = torch.zeros(pixel.numel() + 1)
-        args["window"] = w._replace(pixel_fg=flat[1:].view(pixel.shape))
+        args["window"] = tables(pixel_fg=flat[1:].view(pixel.shape))
     elif case == "table-of-another-pyramid":
-        args["window"] = w._replace(pixel_fg=pixel[:, :-4])
+        args["window"] = tables(pixel_fg=pixel[:, :-4])
     elif case == "no-pixel-table":
-        args["window"] = w._replace(pixel_fg=None)
+        args["window"] = tables(pixel_fg=None)
     elif case == "channels-not-multiple-of-4":
         args["window"] = w._replace(src_feats=w.src_feats[..., :6].contiguous())
     elif case == "bias-without-jac":
-        args["window"] = w._replace(jac_at=None)
+        args["window"] = tables(jac_at=None)
     return args
 
 

@@ -117,7 +117,8 @@ def test_sharded_window_memory_scales_down(runs, n):
     acct = tss.store_bytes_per_device(window, n)
     for out in ports[n]:
         for name in ("feat_pyr", "grad_pyr", "packed_fg", "bias_flat"):
-            assert out["shard_numel"][name] * n == getattr(window, name).numel() * kp // K, name
+            whole = window.tables.packed_fg if name == "packed_fg" else getattr(window, name)
+            assert out["shard_numel"][name] * n == whole.numel() * kp // K, name
         assert out["accounting"] == acct
         assert out["local_bytes"] * n == acct["replicated_bytes"] * kp // K
     problem, pyr = build_problem(k=8, cs=CS)
@@ -128,7 +129,7 @@ def test_sharded_window_memory_scales_down(runs, n):
     jacct = jss.store_bytes_per_device(jwin, 8)
     # the port's ids are int64 where JAX's are int32, and the port's window
     # carries the prep kernel's pixel rows, which JAX's lacks
-    extra = twin.loc1d.numel() * 4 + twin.pixel_fg.numel() * 4
+    extra = twin.loc1d.numel() * 4 + twin.tables.pixel_fg.numel() * 4
     assert tacct["replicated_bytes"] - jacct["replicated_bytes"] == extra
     assert tacct["sharded_bytes_per_device"] <= tacct["replicated_bytes"] // 7
 

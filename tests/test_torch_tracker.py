@@ -23,7 +23,6 @@ from sage_slam_tpu.tracker import matcher as jmatcher
 from sage_slam_tpu.tracker import matching_geo as jmatching_geo
 from sage_slam_tpu.tracker import tracker as jtracker
 from sage_slam_tpu_torch.config import TrackerConfig
-from sage_slam_tpu_torch.geometry import interp as tinterp
 from sage_slam_tpu_torch.geometry.camera import CameraPyramid, PinholeCamera
 from sage_slam_tpu_torch.ops import match_geometry as tmg
 from sage_slam_tpu_torch.ops import reprojection as trp
@@ -126,27 +125,21 @@ def test_tracker_photo_terms_match_jax(scene, with_scale, soft):
 
 def test_tracker_target_tables(scene):
     """with_packed builds the JAX tables (gathers of the same pyramids:
-    equal); mega tables given to a target are used as JAX uses them
-    (tests/test_torch_mega.py holds them in full)."""
+    equal), once; a target with them gives JAX's error."""
     jt = scene.jtarget.with_packed(scene.jpyr)
     tt = scene.ttarget.with_packed(scene.tpyr)
-    np.testing.assert_array_equal(tt.packed_fg.numpy(), np.asarray(jt.packed_fg))
-    np.testing.assert_array_equal(tt.packed_feat.numpy(), np.asarray(jt.packed_feat))
-    assert len(tt.dense_fg) == len(jt.dense_fg) == 1
-    np.testing.assert_array_equal(tt.dense_fg[0].numpy(), np.asarray(jt.dense_fg[0]))
+    np.testing.assert_array_equal(tt.tables.packed_fg.numpy(), np.asarray(jt.packed_fg))
+    np.testing.assert_array_equal(tt.tables.packed_feat.numpy(), np.asarray(jt.packed_feat))
+    assert len(tt.tables.dense_fg) == len(jt.dense_fg) == 1
+    np.testing.assert_array_equal(tt.tables.dense_fg[0].numpy(), np.asarray(jt.dense_fg[0]))
     assert tt.with_packed(scene.tpyr) is tt
-    assert tt.mega_fg is None and jt.mega_fg is None  # USE_MEGA_TABLES is off
-    rows_l0 = torch.cat([tt.feat_pyr[:, :H * W].T, tt.mask_flat[:, None]], dim=1)
-    rows_l1 = tt.feat_pyr[:, H * W : H * W + H * W // 4].T
-    mega = tinterp.build_mega01(rows_l0[None], rows_l1[None], W, H)
-    assert tt._replace(mega_feat=mega).with_packed(scene.tpyr).mega_feat is mega
+    assert tt.tables.bias_at is None and tt.tables.jac_at is None  # no sampled pixels
     jr, jtr, tr, ttr = _pose([0.08, -0.05, 0.03, 0.02, -0.04, 0.03])
     w = (10.0, 9.0, 8.0, 7.0)
-    e_mega = ttracker.tracker_photo_error(tr, ttr, scene.tref, tt._replace(mega_feat=mega), scene.tpyr,
-                                          w, EPS)
+    e_t = ttracker.tracker_photo_error(tr, ttr, scene.tref, tt, scene.tpyr, w, EPS)
     e_j = jtracker.tracker_photo_error(jr, jtr, scene.jref, jt, scene.jpyr, w, EPS)
-    np.testing.assert_allclose(float(e_mega[0]), float(e_j[0]), rtol=1e-5)
-    np.testing.assert_allclose(float(e_mega[1]), float(e_j[1]), rtol=1e-5)
+    np.testing.assert_allclose(float(e_t[0]), float(e_j[0]), rtol=1e-5)
+    np.testing.assert_allclose(float(e_t[1]), float(e_j[1]), rtol=1e-5)
 
 
 def _matches(seed=0, m=40):
