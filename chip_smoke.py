@@ -248,7 +248,23 @@ Phases, each of which exits non-zero on failure:
    the valid edges' indices, blocks and vectors read once, the touched
    tiles of H and rows of b read and written once, at the memory rate),
    and the one-hot path beside;
-16. a JSON line listing every kernel, then the card line, then the last
+16. the geometric factor's linearization kernels (ba.linearize's lin.geo
+   on the card: ops/geo_linearize, csrc/geo_linearize.cu, three launches a
+   call) against the plain chain (build_frame1_tables + geometric_jac_error,
+   run on the card) at the bench point, a mapper window and both cells'
+   problems (E = 24, 48, 372 at CS = 16 and 32), each with prep_variants'
+   three variants: on every edge n_inl exact, ata and atb within GEO_RTOL +
+   GEO_ATOL of max |ata|, the error within GEO_RTOL (an edge with points at
+   a step of the nearest-pixel mask or the z test, GEO_STEP_PX, held
+   against the plain chain with some flipped where it misses it unflipped;
+   the held and flipped counts printed); two calls bitwise equal,
+   ata exactly symmetric; run_ba on each cell counts one geo.kernel and the
+   code width an LM iteration. Times the kernels (cold L2, warm beside)
+   against geo_bound (FP32 operations or bytes), the plain chain and
+   torch.bmm of the Gram alone, and holds run_ba on both cells' problems,
+   card against CPU, to GEO_RUN_BA_GAP. Alone, with the cells built:
+   ``chip_smoke.geo_path(dev, card, (peak_bw, peak_flops))``;
+17. a JSON line listing every kernel, then the card line, then the last
    line ``{"ok": true, "device": {...}}``.
 
 K1's times (phases 5-13) are device times with a cold L2: a 96 MB scratch
@@ -3204,6 +3220,360 @@ def assembly_path(dev, card: str, peaks, cells=None) -> dict:
     return dict(worst=worst, times=times, run_ba_calls=counts, seconds=secs)
 
 
+# ---- 16. the geometric factor's linearization (ops/geo_linearize, csrc/geo_linearize.cu) ----
+
+# Tolerances of the kernels against the plain chain (build_frame1_tables +
+# geometric_jac_error) on the same inputs: the linearize tolerance of phase
+# 4 (rtol 1e-4, atol 1e-5 of max |ata| for ata and atb; rtol 1e-4 for the
+# error), the Gram summed over 3,072 points in another order and the rows
+# computed from coordinates summed in another order. n_inl is a count and
+# must be exact. Every edge is held: a point whose nearest-pixel mask or
+# z > eps test changes within GEO_STEP_PX of the plain chain's coordinates
+# (a few float32 ulps apart from the kernel's) may fall on the other side
+# in the kernel, so an edge that misses the plain chain and has such step
+# points is held instead against the plain chain with some of them flipped
+# (geo_hold searches the subsets, at most GEO_FLIP_MAX points an edge).
+GEO_RTOL, GEO_ATOL = 1e-4, 1e-5
+GEO_STEP_PX = 1e-3
+GEO_FLIP_MAX = 8
+# run_ba on a cell's problem, card against CPU: the worst keyframe's gap
+# over how far the CPU run moved it (read 1.4e-5 at CS = 16 and 3.0e-5 at
+# CS = 32 on an H100)
+GEO_RUN_BA_ITERS, GEO_RUN_BA_GAP = 2, 1e-3
+
+
+def geo_bound(window, edges, cs: int, peak_bw: float, peak_flops: float, splits: int, pad: int):
+    """The kernels' least time for these edges: the larger of the FP32
+    operations E N (D (D + 1) + 2 D), D = 14 + 2CS (the geometric term of
+    benchmark/peaks.lm_iteration_flops), over the peak rate, and the bytes
+    over the memory rate: the table launch's reads of every keyframe's bias
+    and code basis and the mask and its frame-1 table [K, HW, 4] written;
+    the split launch's reads of the distinct source keyframes' rows (homo,
+    bias and code basis at the sampled points) and the distinct target
+    frames' table and code basis, and its partials [E, splits, pad, pad]
+    written; the combine's reads of the partials and the outputs written
+    -> (ms, "operations" | "bytes", flops, bytes)."""
+    k, n = window.loc1d.shape
+    hw = window.bias_flat.shape[1]
+    e = edges.i0.shape[0]
+    d = 14 + 2 * cs
+    flops = e * n * (d * (d + 1) + 2 * d)
+    targets = len(set(edges.i1.tolist()))
+    nbytes = (k * hw * (1 + cs) * 4 + hw * 4 + k * hw * 16
+              + len(set(edges.i0.tolist())) * n * (3 + 1 + cs) * 4 + targets * hw * (16 + cs * 4)
+              + 2 * e * splits * pad * pad * 4 + e * (d * d + d + 2) * 4)
+    t_ops, t_bytes = flops / peak_flops, nbytes / peak_bw
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes", flops, nbytes
+
+
+def _geo_plain(v, w, ge, cam, cfg):
+    from sage_slam_tpu_torch.ops import geometric
+    from sage_slam_tpu_torch.solver import ba
+
+    kf0, kf1, shared = ba._geo_inputs(w, ge, v, cam, which="full")
+    return geometric.geometric_jac_error(
+        ba._edge_pose(v, ge.i0), ba._edge_pose(v, ge.i1), v.code[ge.i0], v.code[ge.i1],
+        v.scale[ge.i0], v.scale[ge.i1], kf0, kf1, shared, cam, cfg.geo_factor_weight,
+        cfg.geo_loss_param_factor * w.avg_sq_bias[ge.i0], cfg.dpt_eps)
+
+
+def _geo_kernel(v, w, ge, cam, cfg):
+    from sage_slam_tpu_torch.ops import geo_linearize
+
+    return geo_linearize.geo_linearize_edges(
+        v.pose.rot, v.pose.trans, v.code, v.scale, ge.i0, ge.i1, w, cam,
+        cfg.geo_loss_param_factor, cfg.geo_factor_weight, cfg.dpt_eps)
+
+
+def _geo_plain_flipped(v, w, ge, cam, cfg, flip_mask, flip_pos):
+    """The plain chain with its nearest-pixel mask (within) flipped at the
+    points of ``flip_mask`` and its z > eps test (pos) at those of
+    ``flip_pos`` ([E, N] bool): what it gives where the kernel's
+    coordinates fall on the other side of those steps. A point the plain
+    chain puts behind is projected at z = 1 there, so flipping its pos on
+    does not give the kernel's rows: such an edge stays unheld."""
+    from sage_slam_tpu_torch.geometry import interp
+    from sage_slam_tpu_torch.ops import geometric
+
+    select, warp = interp.quad_nearest_select_cm, geometric._warp_project_cm
+
+    def flip(t, at):
+        return torch.where(at, 1.0 - t, t)
+
+    def select_flipped(*args, **kw):
+        return flip(select(*args, **kw), flip_mask)
+
+    def warp_flipped(*args, **kw):
+        out = list(warp(*args, **kw))
+        out[5] = flip(out[5], flip_pos)
+        return tuple(out)
+
+    interp.quad_nearest_select_cm, geometric._warp_project_cm = select_flipped, warp_flipped
+    try:
+        return _geo_plain(v, w, ge, cam, cfg)
+    finally:
+        interp.quad_nearest_select_cm, geometric._warp_project_cm = select, warp
+
+
+def _geo_steps(v, w, ge, cam, cfg):
+    """([E, N], [E, N]) bool: the points whose mask at the nearest pixel
+    (half up) changes within GEO_STEP_PX of the plain chain's coordinates,
+    and those whose z > eps test does."""
+    from sage_slam_tpu_torch.ops import photometric
+    from sage_slam_tpu_torch.solver import ba
+
+    kf0, _, shared = ba._geo_inputs(w, ge, v, cam, which="full")
+    out = photometric._warp_project_cm(ba._edge_pose(v, ge.i0), ba._edge_pose(v, ge.i1),
+                                       v.code[ge.i0], v.scale[ge.i0], kf0, shared, cam, cfg.dpt_eps)
+    x1, u, vv = out[4], out[6], out[7]
+
+    def nearest(x, y):
+        fx, fy = torch.floor(x), torch.floor(y)
+        xr = (fx + ((x - fx) >= 0.5)).nan_to_num(-2.0).clamp(-2, cam.width + 1)
+        yr = (fy + ((y - fy) >= 0.5)).nan_to_num(-2.0).clamp(-2, cam.height + 1)
+        inb = (xr >= 0) & (xr < cam.width) & (yr >= 0) & (yr < cam.height)
+        idx = (yr.clamp(0, cam.height - 1) * cam.width + xr.clamp(0, cam.width - 1)).long()
+        return w.mask_flat[idx] * inb
+
+    centre = nearest(u, vv)
+    step = torch.zeros_like(centre, dtype=torch.bool)
+    for du, dv in ((GEO_STEP_PX, 0.0), (-GEO_STEP_PX, 0.0), (0.0, GEO_STEP_PX), (0.0, -GEO_STEP_PX)):
+        step |= nearest(u + du, vv + dv) != centre
+    return step, (x1[:, 2] - cfg.dpt_eps).abs() < GEO_STEP_PX * cfg.dpt_eps
+
+
+def geo_hold(got, plain, mask_step, z_step):
+    """Hold every edge of the kernels' outputs ``got`` (ata, atb, error,
+    n_inl) to the plain chain: n_inl exact, ata and atb within GEO_RTOL +
+    GEO_ATOL of max |ata|, the error within GEO_RTOL. ``plain(flip_mask,
+    flip_pos)`` runs the plain chain with the mask and z tests flipped at
+    the [E, N] points given. An edge that misses the unflipped chain and has
+    step points (``mask_step``, ``z_step``) is held against the chain with
+    a subset of its step points flipped, the subsets tried in order -> (the
+    reference each edge was held to, its flipped points an edge [E], the
+    edges held [E] bool)."""
+    ata, atb, err, n = (x.double().cpu() for x in got)
+    best = [x.double().cpu() for x in plain(torch.zeros_like(mask_step), torch.zeros_like(z_step))]
+    scale = float(best[0].nan_to_num(0.0).abs().max().clamp(min=1e-30))
+
+    def held(ref):
+        ok = torch.eq(n, ref[3])
+        for a, b, atol in ((ata, ref[0], GEO_ATOL * scale), (atb, ref[1], GEO_ATOL * scale),
+                           (err, ref[2], 0.0)):
+            close = torch.isclose(a, b, rtol=GEO_RTOL, atol=atol, equal_nan=True)
+            ok &= close.reshape(len(n), -1).all(dim=1)
+        return ok
+
+    ok = held(best)
+    step = mask_step | z_step
+    counts = step.sum(dim=1).cpu()
+    flips = torch.zeros(len(n), dtype=torch.long)
+    todo = ~ok & (counts > 0) & (counts <= GEO_FLIP_MAX)
+    rank = step.cumsum(dim=1) - 1  # each step point's place among its edge's
+    for subset in range(1, 2 ** int(counts[todo].max()) if bool(todo.any()) else 1):
+        at = step & ((subset >> rank.clamp(min=0)) & 1).bool() & todo.to(step.device)[:, None]
+        ref = [x.double().cpu() for x in plain(at & mask_step, at & z_step)]
+        hit = todo & held(ref)
+        for b, r in zip(best, ref):
+            b[hit] = r[hit]
+        flips[hit] = at.sum(dim=1).cpu()[hit]
+        ok |= hit
+        todo &= ~hit
+        if not bool(todo.any()):
+            break
+    return best, flips, ok
+
+
+def geo_compare(v, w, ge, cam, cfg, label: str):
+    """The kernels' four outputs against the plain chain's (the tolerances
+    are GEO_*'s), two calls bit-equal, ata exactly symmetric -> (stats,
+    faults)."""
+    from sage_slam_tpu_torch.ops import geo_linearize
+
+    before = geo_linearize.geo_linearize_edges.launches
+    got = [x.clone() for x in _geo_kernel(v, w, ge, cam, cfg)]
+    again = _geo_kernel(v, w, ge, cam, cfg)
+    mask_step, z_step = _geo_steps(v, w, ge, cam, cfg)
+    ref, flips, ok = geo_hold(
+        got, lambda fm, fp: _geo_plain_flipped(v, w, ge, cam, cfg, fm, fp), mask_step, z_step)
+    torch.cuda.synchronize()
+    faults = []
+    bits = lambda t: t.contiguous().view(torch.int32)  # noqa: E731  NaN equal to itself
+    if geo_linearize.geo_linearize_edges.launches != before + 2:
+        faults.append("two calls did not launch twice")
+    if not all(torch.equal(bits(a), bits(b)) for a, b in zip(got, again)):
+        faults.append("two calls on the same inputs differ")
+    if not torch.equal(bits(got[0]), bits(got[0].transpose(-1, -2))):
+        faults.append("ata is not exactly symmetric")
+    ata, atb, err, _ = (x.double().cpu() for x in got)
+    ata_r, atb_r, err_r, _ = ref
+    steps = (mask_step | z_step).sum(dim=1).cpu()
+    stats = dict(edges=len(ok), held=int(ok.sum()), step_edges=int((steps > 0).sum()),
+                 step_points=int(steps.sum()), flipped_edges=int((flips > 0).sum()),
+                 flipped_points=int(flips.sum()))
+    if stats["held"] < stats["edges"]:
+        faults.append(f"{stats['edges'] - stats['held']} of {stats['edges']} edges miss the plain chain "
+                      f"(with no step point, or under every flip of at most {GEO_FLIP_MAX})")
+    scale = float(ata_r.nan_to_num(0.0).abs().max().clamp(min=1e-30))
+    for name, a, b, rel in (("ata", ata, ata_r, False), ("atb", atb, atb_r, False), ("error", err, err_r, True)):
+        d = (a - b).nan_to_num(0.0).abs()
+        stats[name] = float((d / b.nan_to_num(0.0).abs().clamp(min=1e-30) if rel else d / scale).max())
+    say(f"geo kernel vs plain: {label} E={stats['edges']}: {stats['held']} of {stats['edges']} edges held "
+        f"({stats['step_edges']} with {stats['step_points']} step points; {stats['flipped_edges']} held with "
+        f"{stats['flipped_points']} flipped); |d| over max |ata|: ata {stats['ata']:.3g}, atb {stats['atb']:.3g}; "
+        f"relative: error {stats['error']:.3g}; two calls bit-equal, ata symmetric: "
+        f"{'ok' if not faults else 'FAULTS: ' + '; '.join(faults)}")
+    return stats, faults
+
+
+def geo_times(v, w, ge, cam, cfg, card: str, peaks, label: str) -> dict:
+    """The kernels, the plain chain and torch.bmm of the Gram alone (rows
+    @ rows^T + rows @ diff on drawn [E, D, N] rows, the library call) timed
+    cold (flush_l2 between calls) and warm against geo_bound. Launches made
+    here are not counted."""
+    from sage_slam_tpu_torch.ops import geo_linearize
+
+    saved = geo_linearize.geo_linearize_edges.launches
+    cs = v.code.shape[1]
+    e, n, d = ge.i0.shape[0], w.loc1d.shape[1], 14 + 2 * cs
+    width = geo_linearize.code_width(cs)
+    splits = geo_linearize.num_splits(n, e, geo_linearize._slots(ge.i0.device.index, width))
+    bound_ms, bound_by, flops, nbytes = geo_bound(w, ge, cs, *peaks, splits,
+                                                  geo_linearize._library().geo_linearize_pad(width))
+    rows = torch.randn((e, d, n), device=ge.i0.device)
+    diff = torch.randn((e, n, 1), device=ge.i0.device)
+
+    def kernel():
+        _geo_kernel(v, w, ge, cam, cfg)
+
+    def plain():
+        _geo_plain(v, w, ge, cam, cfg)
+
+    def library():
+        torch.bmm(rows, rows.transpose(1, 2))
+        torch.bmm(rows, diff)
+
+    reps = 20
+    t = dict(ms=device_ms(kernel, reps, "geo_", cold=True), warm_ms=device_ms(kernel, reps, "geo_"),
+             plain_ms=device_ms(plain, reps, cold=True), warm_plain_ms=device_ms(plain, reps),
+             library_ms=device_ms(library, reps, cold=True), warm_library_ms=device_ms(library, reps),
+             events_ms=cuda_ms(kernel, reps), bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+             bytes=nbytes, ops_ms=flops / peaks[1] * 1e3, bytes_ms=nbytes / peaks[0] * 1e3,
+             splits=splits, E=e, N=n, D=d)
+    t["split_ms"] = device_ms(kernel, reps, "geo_split_points", cold=True)
+    geo_linearize.geo_linearize_edges.launches = saved
+    say(f"time [{card}] geo kernels at {label} (E={e}, N={n}, D={d}): device cold L2 {t['ms']:.6f} ms "
+        f"({bound_ms / t['ms']:.1%} of its bound {bound_ms:.6f} ms by {bound_by}: {flops / 1e9:.3f} GFLOP, "
+        f"{nbytes / 1e6:.1f} MB with {splits} splits an edge: {t['ops_ms']:.6f} ms of operations, "
+        f"{t['bytes_ms']:.6f} ms of bytes, {t['ops_ms'] / t['bytes_ms']:.2f}x), of it the split kernel {t['split_ms']:.6f} ms; warm {t['warm_ms']:.6f} ms "
+        f"({bound_ms / t['warm_ms']:.1%}); CUDA events around {reps} warm wrapper calls "
+        f"{t['events_ms']:.5f} ms a call; the plain chain cold {t['plain_ms']:.4f} ms, warm "
+        f"{t['warm_plain_ms']:.4f} ms; torch.bmm of the Gram alone cold {t['library_ms']:.4f} ms, warm "
+        f"{t['warm_library_ms']:.4f} ms")
+    if bound_ms / t["ms"] > K1_MAX_SHARE:
+        fail(f"geo kernels at {label}: cold reading {t['ms']:.6f} ms is {bound_ms / t['ms']:.1%} of the bound")
+    return t
+
+
+def geo_counts(variables, problem, pyr, cfg, mask, label: str) -> int:
+    """run_ba with utils/timing recording: every lin.geo span counts one
+    geo.kernel and the code width of the problem's CS, one kernel call an
+    LM iteration -> kernel calls."""
+    from sage_slam_tpu_torch.ops import geo_linearize
+    from sage_slam_tpu_torch.solver import ba
+    from sage_slam_tpu_torch.utils import timing
+
+    width = geo_linearize.code_width(variables.code_size)
+    timing.reset()
+    timing.enable(True)
+    before = geo_linearize.geo_linearize_edges.launches
+    _, err, iters, _ = ba.run_ba(variables, problem, pyr, cfg, mask, cfg.max_gn_iters)
+    timing.enable(False)
+    calls = geo_linearize.geo_linearize_edges.launches - before
+    spans = [r for r in timing.records() if r.name == "lin.geo"]
+    timing.reset()
+    counts = {(r.counts.get("geo.kernel"), r.counts.get("geo.code_width")) for r in spans}
+    say(f"geo kernels on {label}: run_ba {iters} LM iterations, error {float(err):.6g}; {len(spans)} "
+        f"lin.geo spans, kernel calls {calls}, (geo.kernel, geo.code_width) {sorted(counts)}")
+    if not calls == len(spans) == iters or counts != {(1, width)} or not bool(torch.isfinite(err)):
+        fail(f"run_ba on {label}: {calls} geo kernel calls, {len(spans)} lin.geo spans counting "
+             f"{sorted(counts)} for {iters} LM iterations (expected one each, width {width})")
+    return calls
+
+
+def geo_run_ba_cpu(variables, problem, pyr, cfg, mask, label: str) -> float:
+    """run_ba on a cell's problem on the card against the same call on CPU
+    copies (the plain chains) at GEO_RUN_BA_ITERS iterations: the worst
+    keyframe's distance between the two over the largest distance the CPU
+    run moved a keyframe (translation, code, scale) -> that gap."""
+    from sage_slam_tpu_torch import convert
+    from sage_slam_tpu_torch.solver import ba
+
+    def flat(v):
+        return torch.cat([v.pose.trans, v.code, v.scale[:, None]], dim=1).double().cpu()
+
+    t0 = time.perf_counter()
+    out_g = ba.run_ba(variables, problem, pyr, cfg, mask, GEO_RUN_BA_ITERS)
+    out_c = ba.run_ba(convert.to_device(variables, "cpu"), convert.to_device(problem, "cpu"), pyr, cfg,
+                      mask.cpu(), GEO_RUN_BA_ITERS)
+    start, card_v, cpu_v = flat(variables), flat(out_g[0]), flat(out_c[0])
+    moved = float((cpu_v - start).norm(dim=1).max())
+    gap = float((card_v - cpu_v).norm(dim=1).max()) / max(moved, 1e-30)
+    say(f"run_ba on {label}, card against CPU, {GEO_RUN_BA_ITERS} iterations: iterations {out_g[2]} / "
+        f"{out_c[2]}, error {float(out_g[1]):.6g} / {float(out_c[1]):.6g}, worst keyframe gap {gap:.3g} of "
+        f"the largest move {moved:.4g} ({time.perf_counter() - t0:.1f} s)")
+    if not gap < GEO_RUN_BA_GAP:
+        fail(f"run_ba on {label}: card and CPU differ by {gap:.3g} of the move (limit {GEO_RUN_BA_GAP})")
+    return gap
+
+
+def geo_path(dev, card: str, peaks, cells=None) -> dict:
+    """Phase 16: the geometric factor's kernels against the plain chain at
+    the bench point, a mapper window and both cells' problems (E = 24, 48,
+    372 at CS = 16 and 32), each with prep_variants' three variants; one
+    kernel call an LM iteration of run_ba on the cells; times against
+    geo_bound, the plain chain and torch.bmm of the Gram; run_ba card
+    against CPU on both cells' problems. ``cells`` as phase 14 built them,
+    else built here."""
+    from sage_slam_tpu_torch import synthetic
+    from sage_slam_tpu_torch.config import MapperConfig
+    from sage_slam_tpu_torch.solver import ba
+
+    t0 = time.perf_counter()
+    if cells is None:
+        cells = {cs: cell_problem(dev, code_size=cs) for cs in (16, 32)}
+    mcfg = MapperConfig()
+    shapes = []
+    for cs in (16, 32):
+        for label, kw in (("the bench point", {}), ("a mapper window", dict(n_photo=48, n_geo=48))):
+            v, p, pyr = synthetic.bench_problem(device=dev, cs=cs, **kw)
+            shapes.append((f"{label} at CS={cs}", v, ba.prepare_problem(p, pyr), pyr, mcfg))
+        c = cells[cs]
+        shapes.append((f"the CS={cs} cell's problem", c[0], c[1], c[3], c[4].mapper))
+    faults, worst, held = [], {}, {}
+    for i, (label, v, p, pyr, cfg) in enumerate(shapes):
+        for vlabel, vv, w in prep_variants(v, p.window, seed=60 + i):
+            stats, bad = geo_compare(vv, w, p.geo_edges, pyr[0], cfg, f"{label}, {vlabel},")
+            faults += [f"{label}, {vlabel}: {f}" for f in bad]
+            held[f"{label}, {vlabel}"] = {k: stats[k] for k in ("held", "edges", "flipped_edges")}
+            for key, val in stats.items():
+                if isinstance(val, float):
+                    worst[key] = max(worst.get(key, 0.0), val)
+    if faults:
+        fail("geo kernels against the plain chain:\n  " + "\n  ".join(faults))
+    counts, times, gaps = {}, {}, {}
+    for cs, (v, p, mask, pyr, scfg) in cells.items():
+        label = f"the CS={cs} cell's problem"
+        counts[f"CS={cs}"] = geo_counts(v, p, pyr, scfg.mapper, mask, label)
+        times[f"cell_cs{cs}"] = geo_times(v, p.window, p.geo_edges, pyr[0], scfg.mapper, card, peaks, label)
+        gaps[f"CS={cs}"] = geo_run_ba_cpu(v, p, pyr, scfg.mapper, mask, label)
+    for label, v, p, pyr, cfg in (shapes[0], shapes[3]):
+        times[label] = geo_times(v, p.window, p.geo_edges, pyr[0], cfg, card, peaks, label)
+    secs = time.perf_counter() - t0
+    say(f"phase 16 took {secs:.1f} s")
+    return dict(worst=worst, held=held, times=times, run_ba_calls=counts, run_ba_gaps=gaps, seconds=secs)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old-source", default=None,
@@ -3218,6 +3588,7 @@ def main() -> None:
     from sage_slam_tpu_torch.config import MapperConfig
     from sage_slam_tpu_torch.bench import card_line, peaks_for
     from sage_slam_tpu_torch.device import set_f32_precision
+    from sage_slam_tpu_torch.ops import geo_linearize
     from sage_slam_tpu_torch.ops import photo_prep as pp
     from sage_slam_tpu_torch.ops import photo_reduce as pr
     from sage_slam_tpu_torch.ops import photometric
@@ -3466,9 +3837,13 @@ def main() -> None:
     prepped = prep_path(dev, card, (peak_bw, peak_flops))
 
     # ---- 15. the Hessian assembly kernel ----
-    assembled = assembly_path(dev, card, (peak_bw, peak_flops), prepped.pop("cells"))
+    cells = prepped.pop("cells")
+    assembled = assembly_path(dev, card, (peak_bw, peak_flops), cells)
 
-    # ---- 16. result ----
+    # ---- 16. the geometric factor's linearization ----
+    geo = geo_path(dev, card, (peak_bw, peak_flops), cells)
+
+    # ---- 17. result ----
     kernels = [{
         "name": "photo_reduce",
         "route": "cuda",
@@ -3536,6 +3911,18 @@ def main() -> None:
         "max_rel_err": assembled["worst"],
         "timing": "device time, cold L2 (a 96 MB scratch buffer read three times before each call)",
         "cell_shapes": assembled["times"],
+    }, {
+        "name": "geo_linearize",
+        "route": "cuda",
+        "source": "sage_slam_tpu_torch/ops/csrc/geo_linearize.cu",
+        "replaces": None,
+        "calls": geo_linearize.geo_linearize_edges.launches,
+        "run_ba_calls_at_the_cells": geo["run_ba_calls"],
+        "run_ba_gap_card_against_cpu": geo["run_ba_gaps"],
+        "matched": True,
+        "max_rel_err": geo["worst"],
+        "timing": "device time, cold L2 (a 96 MB scratch buffer read three times before each call)",
+        "shapes": geo["times"],
     }]
     if old_ms is not None:
         kernels[0]["earlier_ms"] = old_ms

@@ -5,8 +5,9 @@ call, has a plain C interface and is loaded with ctypes: ``photometric``
 holds K1 (photo_reduce.cu, at padded widths 32 and 48) and the prep kernel
 (photo_prep.cu, at code widths 16 and 32), every instantiation compiled
 by that one call; ``assembly`` holds the Hessian assembly
-(hessian_assembly.cu). The first load builds every library not yet built,
-one nvcc each, all at once. Libraries
+(hessian_assembly.cu); ``geometric`` the geometric factor's linearization
+(geo_linearize.cu, at code widths 16 and 32). The first load builds every
+library not yet built, one nvcc each, all at once. Libraries
 go to ``_build/`` beside this file (listed in .gitignore), named by the
 hash of their sources and the flags, so an edited source is rebuilt and
 an unchanged one is not. A build
@@ -28,7 +29,8 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent / "ops" / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = {"photometric": ("photo_reduce.cu", "photo_prep.cu"), "assembly": ("hessian_assembly.cu",)}
+SOURCES = {"photometric": ("photo_reduce.cu", "photo_prep.cu"), "assembly": ("hessian_assembly.cu",),
+           "geometric": ("geo_linearize.cu",)}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

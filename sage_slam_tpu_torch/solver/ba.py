@@ -7,7 +7,9 @@ per-keyframe priors are added; the damped GN loop (solver.graph.lm_loop)
 runs the optimization.
 
 The photometric prep and reduce of every linearization are ops/photo_prep
-and ops/photo_reduce (two CUDA kernels when the problem lies on the card).
+and ops/photo_reduce (two CUDA kernels when the problem lies on the card);
+the geometric factor's is ops/geo_linearize on the card, the plain
+ops/geometric chain on the CPU.
 Reprojection edges (off by default, MapperConfig.use_reprojection) enter
 as a third factor type.
 ``compact_problem_keyframes`` gathers the window-incident keyframes of a
@@ -24,7 +26,7 @@ from ..config import PHOTO_REDUCE_NAMES
 from ..device import set_f32_precision
 from ..geometry.camera import CameraPyramid
 from ..geometry.se3 import SE3
-from ..ops import geometric, photo_prep, photometric, priors
+from ..ops import geo_linearize, geometric, photo_prep, photometric, priors
 from ..ops import reprojection as rp_ops
 from ..ops.photo_reduce import photo_reduce
 from ..utils import timing
@@ -235,6 +237,29 @@ def _geo_inputs(window: WindowData, e: EdgeTable, variables: Variables, cam, whi
     return kf0, kf1, shared
 
 
+def _geo_linearize(variables: Variables, window: WindowData, e: EdgeTable, cam, cfg):
+    """(ata, atb, error) of the geometric edges, not PSD-corrected: the
+    kernels on CUDA tensors (ops/geo_linearize), the plain chain
+    (geometric.build_frame1_tables + geometric_jac_error) on CPU tensors."""
+    pose = variables.pose
+    t = window.tables
+    if geo_linearize.uses_kernel(
+        variables.scale, pose.rot, pose.trans, variables.code, window.homo, window.bias_flat,
+        window.jac_flat, window.avg_sq_bias, *(() if t is None else (t.bias_at, t.jac_at)),
+    ):
+        return geo_linearize.geo_linearize_edges(
+            pose.rot, pose.trans, variables.code, variables.scale, e.i0, e.i1, window, cam,
+            cfg.geo_loss_param_factor, cfg.geo_factor_weight, cfg.dpt_eps,
+        )[:3]
+    kf0, kf1, gshared = _geo_inputs(window, e, variables, cam, which="full")
+    loss_param = cfg.geo_loss_param_factor * window.avg_sq_bias[e.i0]
+    return geometric.geometric_jac_error(
+        _edge_pose(variables, e.i0), _edge_pose(variables, e.i1),
+        variables.code[e.i0], variables.code[e.i1], variables.scale[e.i0], variables.scale[e.i1],
+        kf0, kf1, gshared, cam, cfg.geo_factor_weight, loss_param, cfg.dpt_eps,
+    )[:3]
+
+
 def _edge_pose(variables: Variables, idx: torch.Tensor) -> SE3:
     return SE3(variables.pose.rot[idx], variables.pose.trans[idx])
 
@@ -312,17 +337,7 @@ def linearize(
         ge = problem.geo_edges
         if ge.i0.shape[0] > 0:
             timing.count("edges", ge.i0.shape[0])
-            kf0, kf1, gshared = _geo_inputs(
-                problem.window, ge, variables, cam_pyr[0], which="full"
-            )
-            loss_param = cfg.geo_loss_param_factor * problem.window.avg_sq_bias[ge.i0]
-            ata, atb, err, _ = geometric.geometric_jac_error(
-                _edge_pose(variables, ge.i0), _edge_pose(variables, ge.i1),
-                variables.code[ge.i0], variables.code[ge.i1],
-                variables.scale[ge.i0], variables.scale[ge.i1],
-                kf0, kf1, gshared, cam_pyr[0], cfg.geo_factor_weight,
-                loss_param, cfg.dpt_eps,
-            )
+            ata, atb, err = _geo_linearize(variables, problem.window, ge, cam_pyr[0], cfg)
             h, b, total_err = _add_block(
                 h, b, total_err, bd, psd, ata, atb, err, ge.valid,
                 (ge.i0, sel_pose), (ge.i1, sel_pose), (ge.i0, sel_code), (ge.i1, sel_code),

@@ -1,6 +1,7 @@
 """The CUDA photometric reduce against its plain version, the mapper
-slice on the card against the same calls on the CPU, and the Hessian
-assembly kernel against the one-hot path and a float64 sum.
+slice on the card against the same calls on the CPU, the Hessian
+assembly kernel against the one-hot path and a float64 sum, and the
+geometric factor's kernels against the plain chain.
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside the
 fixture, never at import). Run on a machine with an H100 and nvcc:
@@ -497,3 +498,175 @@ def test_assembly_kernel_refuses_what_it_cannot_take(cuda):
         graph.scatter_hessian(h, b, gidx, ata[:, :1], atb, valid, bd)
     with pytest.raises(ValueError):  # no backward
         graph.scatter_hessian(h, b, gidx, ata.clone().requires_grad_(), atb, valid, bd)
+
+
+# ---- the geometric factor's linearization (csrc/geo_linearize.cu) ----
+
+
+def _geo_case(dev, cs=16, k=8, e=24, flat=False):
+    """The geometric edges of the bench point's problem (``k`` keyframes,
+    ``e`` ring edges, a ``cs``-dim code; drawn codes and scales; ``flat``
+    drops the prepared decode tables) -> (variables, window, edges, camera,
+    config)."""
+    from sage_slam_tpu_torch import synthetic
+    from sage_slam_tpu_torch.config import MapperConfig
+    from sage_slam_tpu_torch.solver import ba
+    from sage_slam_tpu_torch.solver.graph import Variables
+
+    v, p, pyr = synthetic.bench_problem(device=dev, k=k, cs=cs, n_geo=e)
+    p = ba.prepare_problem(p, pyr)
+    gen = torch.Generator().manual_seed(11)
+    v = Variables(v.pose, 0.1 * torch.randn(v.code.shape, generator=gen).to(dev),
+                  1.0 + 0.1 * torch.randn(v.scale.shape, generator=gen).to(dev))
+    w = p.window
+    if flat:
+        w = w._replace(tables=w.tables._replace(bias_at=None, jac_at=None))
+    return v, w, p.geo_edges, pyr[0], MapperConfig()
+
+
+GEO_CASES = [
+    pytest.param(16, 8, 24, False, id="cs16-e24"),
+    pytest.param(16, 8, 48, False, id="cs16-e48"),
+    pytest.param(16, 64, 372, False, id="cs16-e372"),
+    pytest.param(32, 8, 24, False, id="cs32-e24"),
+    pytest.param(32, 8, 48, False, id="cs32-e48"),
+    pytest.param(32, 64, 372, False, id="cs32-e372"),
+    pytest.param(16, 8, 24, True, id="cs16-e24-bias_flat"),
+]
+
+
+@pytest.mark.parametrize("cs,k,e,flat", GEO_CASES)
+def test_geo_kernel_matches_plain_chain(cuda, cs, k, e, flat):
+    """The kernels (ops/geo_linearize, through ba's dispatch) against
+    build_frame1_tables + geometric_jac_error on the card, held as
+    chip_smoke.py's phase 16 holds them (geo_compare: n_inl exact, ata and
+    atb within rtol 1e-4 + atol 1e-5 max |ata|, the error within 1e-4, on
+    every edge, an edge with points at a step of the nearest-pixel mask or
+    the z test against the plain chain with some of them flipped where it
+    misses the unflipped one; two calls bit-equal, ata exactly
+    symmetric); one call launches the split kernel once, counted as
+    geo.kernel 1 and geo.code_width W in the span open around it."""
+    import chip_smoke
+    from sage_slam_tpu_torch.ops import geo_linearize
+    from sage_slam_tpu_torch.solver import ba
+    from sage_slam_tpu_torch.utils import timing
+
+    v, w, ge, cam, cfg = _geo_case(cuda, cs, k, e, flat)
+    before = geo_linearize.geo_linearize_edges.launches
+    timing.reset()
+    timing.enable(True)
+    with timing.span("probe"):
+        got = chip_smoke._geo_kernel(v, w, ge, cam, cfg)
+    timing.enable(False)
+    (rec,) = [r for r in timing.records() if r.name == "probe"]
+    timing.reset()
+    assert geo_linearize.geo_linearize_edges.launches == before + 1
+    assert rec.counts == {"geo.kernel": 1, "geo.code_width": cs}
+    dim = 14 + 2 * cs
+    assert got[0].shape == (e, dim, dim) and got[1].shape == (e, dim)
+    three = ba._geo_linearize(v, w, ge, cam, cfg)
+    assert all(torch.equal(a, b) for a, b in zip(three, got[:3]))
+    stats, faults = chip_smoke.geo_compare(v, w, ge, cam, cfg, f"CS={cs} E={e}")
+    assert not faults, faults
+
+
+def test_geo_kernel_launches_three_kernels_without_a_host_read(cuda):
+    """One call at the CS=32 cell's shape: three kernels in the profile (the
+    frame-1 table, the splits, the combine), and nothing that synchronizes
+    with the host (torch's sync debug mode raises on such a call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sage_slam_tpu_torch.solver import ba
+
+    v, w, ge, cam, cfg = _geo_case(cuda, 32, 64, 372)
+    ba._geo_linearize(v, w, ge, cam, cfg)  # builds and loads the library
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ba._geo_linearize(v, w, ge, cam, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    counts = {e.key: e.count for e in prof.key_averages()
+              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA}
+    assert len(counts) == 3 and all(c == 1 for c in counts.values()), counts
+    for kernel in ("geo_frame1_table", "geo_split_points<32>", "geo_combine<32>"):
+        assert sum(kernel in name for name in counts) == 1, counts
+
+
+@pytest.mark.parametrize("cs", [16, 32])
+def test_linearize_with_geo_kernel_matches_cpu(cuda, cs):
+    """ba.linearize on the card (prep kernel, K1, the geometric kernels,
+    the assembly) against the same call on CPU copies (the plain chains):
+    H and b within rtol 1e-4 + atol 1e-5 max |H|, the error within 1e-4
+    (chip_smoke's phase 4 tolerance)."""
+    from sage_slam_tpu_torch import convert, synthetic
+    from sage_slam_tpu_torch.config import MapperConfig
+    from sage_slam_tpu_torch.ops import geo_linearize
+    from sage_slam_tpu_torch.solver import ba
+
+    v, p, pyr = synthetic.bench_problem(device=cuda, cs=cs)
+    p = ba.prepare_problem(p, pyr)
+    cfg = MapperConfig()
+    before = geo_linearize.geo_linearize_edges.launches
+    h, b, err = ba.linearize(v, p, pyr, cfg)
+    assert geo_linearize.geo_linearize_edges.launches == before + 1
+    h_c, b_c, err_c = ba.linearize(convert.to_device(v, "cpu"), convert.to_device(p, "cpu"), pyr, cfg)
+    scale = float(h_c.abs().max())
+    torch.testing.assert_close(h.cpu(), h_c, rtol=1e-4, atol=1e-5 * scale)
+    torch.testing.assert_close(b.cpu(), b_c, rtol=1e-4, atol=1e-5 * scale)
+    torch.testing.assert_close(err.cpu(), err_c, rtol=1e-4, atol=0.0)
+
+
+def test_geo_kernel_refuses_a_graph_and_training_keeps_the_plain_chain(cuda):
+    """An input on the card that carries an autograd graph raises in the
+    dispatch and launches nothing; geometric.geometric_jac_error, which
+    training calls directly, keeps its graph on the card and launches
+    nothing either."""
+    from sage_slam_tpu_torch.ops import geo_linearize
+    from sage_slam_tpu_torch.solver import ba
+
+    v, w, ge, cam, cfg = _geo_case(cuda)
+    before = geo_linearize.geo_linearize_edges.launches
+    vg = v._replace(code=v.code.clone().requires_grad_())
+    with pytest.raises(ValueError, match="autograd graph"):
+        ba._geo_linearize(vg, w, ge, cam, cfg)
+    import chip_smoke
+
+    ata, atb, err, _ = chip_smoke._geo_plain(vg, w, ge, cam, cfg)
+    assert ata.grad_fn is not None and err.grad_fn is not None
+    assert geo_linearize.geo_linearize_edges.launches == before
+
+
+def test_geo_kernel_refuses_what_it_cannot_take(cuda):
+    """Wrong dtype or shape, CS > 32, a CS that is not a multiple of 4, a
+    code basis off a 16-byte boundary and E = 0 raise before any launch."""
+    from sage_slam_tpu_torch.ops import geo_linearize
+
+    v, w, ge, cam, cfg = _geo_case(cuda)
+    k, n = w.loc1d.shape
+    hw = w.bias_flat.shape[1]
+    before = geo_linearize.geo_linearize_edges.launches
+    call = lambda **kw: geo_linearize.geo_linearize_edges(  # noqa: E731
+        **{**dict(rot=v.pose.rot, trans=v.pose.trans, code=v.code, scale=v.scale, i0=ge.i0,
+                  i1=ge.i1, window=w, cam=cam, loss_factor=cfg.geo_loss_param_factor,
+                  weight=cfg.geo_factor_weight, eps=cfg.dpt_eps), **kw})
+    with pytest.raises(TypeError):
+        call(scale=v.scale.double())
+    with pytest.raises(ValueError):
+        call(window=w._replace(homo=w.homo[:, :-1].contiguous()))
+    wide = w._replace(jac_flat=torch.zeros((k, hw, 33), device=cuda),
+                      tables=w.tables._replace(jac_at=torch.zeros((k, n, 33), device=cuda)))
+    with pytest.raises(ValueError):
+        call(code=torch.zeros((k, 33), device=cuda), window=wide)
+    odd = w._replace(jac_flat=torch.zeros((k, hw, 30), device=cuda),
+                     tables=w.tables._replace(jac_at=torch.zeros((k, n, 30), device=cuda)))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        call(code=torch.zeros((k, 30), device=cuda), window=odd)
+    moved = torch.empty(w.jac_flat.numel() + 1, device=cuda)[1:].view(w.jac_flat.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        call(window=w._replace(jac_flat=moved.copy_(w.jac_flat)))
+    with pytest.raises(ValueError):
+        call(i0=ge.i0[:0], i1=ge.i1[:0])
+    assert geo_linearize.geo_linearize_edges.launches == before

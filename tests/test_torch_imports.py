@@ -53,6 +53,8 @@ SLICE_MODULES = [
     "training/losses.py", "training/discriminator.py", "training/dataset.py",
     "training/diff_ba.py", "training/train.py", "ops/photo_reduce.py", "ops/photometric.py",
     "ops/geometric.py",
+    # the card's kernel wrappers
+    "ops/photo_prep.py", "ops/geo_linearize.py",
     # the dense and diagnostic eval slice
     "eval/tsdf.py", "eval/error_budget.py", "eval/gt_probe.py", "demo/make_eval.py",
     # the default-off paths and multi-device BA
