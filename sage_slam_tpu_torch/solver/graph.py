@@ -226,28 +226,34 @@ def schur_solve(h: torch.Tensor, b: torch.Tensor, num_kf: int, block_dim: int):
     recovered. Acc is the FULL cross-coupled block: geometric edges couple
     the codes of two keyframes, so it is not block-diagonal, and the
     result equals the dense solve up to float32 factorization roundoff.
-    ``ok`` is False when either factorization failed (JAX's NaNs)."""
+    ``ok`` is False when either factorization failed (JAX's NaNs).
+
+    Spans: ``solve.factor`` holds the partition, both factorizations and
+    the elimination products; ``solve.tri`` the pose solve and the code
+    and scale recovery."""
     dev = h.device
-    kf = torch.arange(num_kf, device=dev)[:, None] * block_dim
-    pose_idx = (kf + torch.arange(6, device=dev)).reshape(-1)
-    cs_idx = (kf + torch.arange(6, block_dim, device=dev)).reshape(-1)
-    h_p = h[pose_idx]
-    app = h_p[:, pose_idx]  # [6K, 6K]
-    apc = h_p[:, cs_idx]  # [6K, (bd-6)K]
-    acc = h[cs_idx][:, cs_idx]
-    bp, bc = b[pose_idx], b[cs_idx]
-    u_cc, info_cc = torch.linalg.cholesky_ex(acc, upper=True)
-    x = torch.cholesky_solve(apc.T.contiguous(), u_cc, upper=True)  # Acc^-1 Acp
-    y = torch.cholesky_solve(bc[:, None], u_cc, upper=True)[:, 0]
-    s = app - apc @ x
-    rhs = bp - (apc @ y[:, None])[:, 0]
-    u_s, info_s = torch.linalg.cholesky_ex(s, upper=True)
-    dp = torch.cholesky_solve(rhs[:, None], u_s, upper=True)[:, 0]
-    dc = y - (x @ dp[:, None])[:, 0]
-    delta = torch.zeros_like(b)
-    delta[pose_idx] = dp
-    delta[cs_idx] = dc
-    return delta, (info_cc == 0) & (info_s == 0)
+    with timing.span("solve.factor"):
+        kf = torch.arange(num_kf, device=dev)[:, None] * block_dim
+        pose_idx = (kf + torch.arange(6, device=dev)).reshape(-1)
+        cs_idx = (kf + torch.arange(6, block_dim, device=dev)).reshape(-1)
+        h_p = h[pose_idx]
+        app = h_p[:, pose_idx]  # [6K, 6K]
+        apc = h_p[:, cs_idx]  # [6K, (bd-6)K]
+        acc = h[cs_idx][:, cs_idx]
+        bp, bc = b[pose_idx], b[cs_idx]
+        u_cc, info_cc = torch.linalg.cholesky_ex(acc, upper=True)
+        x = torch.cholesky_solve(apc.T.contiguous(), u_cc, upper=True)  # Acc^-1 Acp
+        y = torch.cholesky_solve(bc[:, None], u_cc, upper=True)[:, 0]
+        s = app - apc @ x
+        rhs = bp - (apc @ y[:, None])[:, 0]
+        u_s, info_s = torch.linalg.cholesky_ex(s, upper=True)
+    with timing.span("solve.tri"):
+        dp = torch.cholesky_solve(rhs[:, None], u_s, upper=True)[:, 0]
+        dc = y - (x @ dp[:, None])[:, 0]
+        delta = torch.zeros_like(b)
+        delta[pose_idx] = dp
+        delta[cs_idx] = dc
+        return delta, (info_cc == 0) & (info_s == 0)
 
 
 def _damped_solve(h, b, damping: float, min_damp: float, free, solver: str = "dense",
@@ -260,21 +266,33 @@ def _damped_solve(h, b, damping: float, min_damp: float, free, solver: str = "de
     cholesky_ex returns a partial factor that is not NaN, so the factor's
     ``info`` decides: delta is 0 whenever a factorization failed. The
     upper factor is used, as cho_factor's default reads the upper
-    triangle."""
+    triangle.
+
+    Every operation lies in one of three spans, so their device time adds
+    up to the caller's ``lm.solve``: ``solve.damp`` (the damped, masked
+    system and its rhs), ``solve.factor`` (the factorization) and
+    ``solve.tri`` (the triangular solves and the ``ok``/finite masking)."""
     dim = h.shape[-1]
-    eye = torch.eye(dim, dtype=h.dtype, device=h.device)
-    h_damped = h + torch.diag(damping * torch.diagonal(h)) + min_damp * eye
-    h_masked = h_damped * free[:, None] * free[None, :] + torch.diag(1.0 - free)
-    b_masked = b * free
+    with timing.span("solve.damp"):
+        eye = torch.eye(dim, dtype=h.dtype, device=h.device)
+        h_damped = h + torch.diag(damping * torch.diagonal(h)) + min_damp * eye
+        h_masked = h_damped * free[:, None] * free[None, :] + torch.diag(1.0 - free)
+        b_masked = b * free
     if solver == "schur":
         delta, ok = schur_solve(h_masked, b_masked, num_kf, block_dim)
-    else:
+        with timing.span("solve.tri"):
+            return _kept(delta, ok), b_masked
+    with timing.span("solve.factor"):
         u, info = torch.linalg.cholesky_ex(h_masked, upper=True)
+    with timing.span("solve.tri"):
         delta = torch.cholesky_solve(b_masked[:, None], u, upper=True)[:, 0]
-        ok = info == 0
+        return _kept(delta, info == 0), b_masked
+
+
+def _kept(delta, ok):
+    """delta where the factorization succeeded (``ok``) and finite, else 0."""
     delta = torch.where(ok, delta, torch.zeros_like(delta))
-    delta = torch.where(torch.isfinite(delta), delta, torch.zeros_like(delta))
-    return delta, b_masked
+    return torch.where(torch.isfinite(delta), delta, torch.zeros_like(delta))
 
 
 def lm_loop(

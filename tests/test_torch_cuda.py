@@ -670,3 +670,72 @@ def test_geo_kernel_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError):
         call(i0=ge.i0[:0], i1=ge.i1[:0])
     assert geo_linearize.geo_linearize_edges.launches == before
+
+
+@pytest.mark.parametrize("solver,path", [("dense", "dense"), ("auto", "schur")])
+def test_refine_mapping_over_a_full_store(cuda, monkeypatch, solver, path):
+    """RefineMapping (SlamSystem.refine_mapping: full-graph mapping steps,
+    each to its relinearization exit, until one converges) over a store
+    filled to its 256 keyframes at the published widths (SlamConfig() with
+    the mapper's ``solver``, random DepthNetConfig() / FeatureNetConfig()
+    networks, the mapper's video, 3 back-connections a keyframe): every step
+    solves the 5,888-wide compact problem on the expected path ("auto"
+    takes the Schur elimination at 256 keyframes) and the map's variables
+    come back finite. Prints its wall time, LM iterations and peak memory."""
+    import dataclasses
+    import json
+    import time
+
+    from sage_slam_tpu_torch import synthetic
+    from sage_slam_tpu_torch.config import SlamConfig
+    from sage_slam_tpu_torch.frontend.slam import SlamSystem
+    from sage_slam_tpu_torch.geometry.se3 import SE3
+    from sage_slam_tpu_torch.models import depth_network, feature_network
+    from sage_slam_tpu_torch.solver import ba
+
+    cfg = SlamConfig()
+    cfg = dataclasses.replace(cfg, mapper=dataclasses.replace(cfg.mapper, solver=solver))
+    k = cfg.max_keyframes
+    scene = synthetic.mapper_scene(k, seed=1)
+    gen = torch.Generator().manual_seed(1)
+    dnet = depth_network.init_network(gen, depth_network.DepthNetConfig())
+    fnet = feature_network.init_network(gen, feature_network.FeatureNetConfig())
+    system = SlamSystem(cfg, scene.camera, scene.mask_out, dnet, fnet, video_mask_in=scene.mask_in,
+                        device=cuda)
+    mapper = system.mapper
+    mapper.init_one_frame(0.0, scene.images[0])
+    for f in range(1, k):
+        pose = SE3(torch.from_numpy(scene.rot[f]).to(cuda), torch.from_numpy(scene.trans[f]).to(cuda))
+        mapper.enqueue_keyframe(mapper.build_frame(0.1 * f, scene.images[f], pose=pose),
+                                list(range(f - 1, max(-1, f - 4), -1)))
+    assert system.store.num_active == k == 256
+    widths, paths = [], []
+    run_ba, resolve_solver = ba.run_ba, ba.resolve_solver
+
+    def spy(variables, *args, **kwargs):
+        widths.append(variables.num_kf * variables.block_dim)
+        return run_ba(variables, *args, **kwargs)
+
+    def spy_solver(*args):
+        paths.append(resolve_solver(*args))
+        return paths[-1]
+
+    monkeypatch.setattr(ba, "run_ba", spy)
+    monkeypatch.setattr(ba, "resolve_solver", spy_solver)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    err = system.refine_mapping()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    assert widths and set(widths) == {k * (7 + cfg.code_size)} == {5888}
+    assert set(paths) == {path}
+    v = system.store.variables
+    for t in (v.pose.rot, v.pose.trans, v.code, v.scale):
+        assert bool(torch.isfinite(t[:k]).all())
+    assert np.isfinite(err)
+    print("refine_mapping_full_store " + json.dumps({
+        "card": torch.cuda.get_device_name(cuda), "solver": path, "keyframes": k, "width": widths[0],
+        "steps": len(widths), "lm_iters": system.refine_iterations,
+        "converged": mapper.last_step_converged, "wall_s": wall_s,
+        "peak_bytes": torch.cuda.max_memory_allocated(cuda), "error": float(err)}))

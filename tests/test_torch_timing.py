@@ -4,6 +4,7 @@ counts; threads; the bounded buffer; the cost of a span that is off; the
 spans as torch.profiler annotations on the record's clock; and the span
 tree of one ``run_ba`` step under the CPU profiler."""
 
+import dataclasses
 import json
 import threading
 import time
@@ -247,16 +248,20 @@ def test_spans_are_profiler_annotations_inside_their_records(tmp_path):
         assert r.start_ns - SLACK_NS <= start <= end <= r.end_ns + SLACK_NS, r.name
 
 
-def bench_step(iters=3):
+def bench_step(iters=3, solver="dense"):
     variables, problem, pyr = synthetic.bench_problem("cpu", k=4, h=32, w=40, cs=4, fs=4, levels=2,
                                                       n=128, n_photo=6, n_geo=6)
-    cfg = SlamConfig().mapper
+    cfg = dataclasses.replace(SlamConfig().mapper, solver=solver)
     mask = torch.ones(4)
     mask[0] = 0.0
     return lambda: ba.run_ba(variables, problem, pyr, cfg, mask, iters)
 
 
 ITER_KIDS = ["ba.linearize", "lm.accept", "lm.solve", "lm.retract"]
+# the dense path's; the Schur path's schur_solve opens its own factor and
+# tri spans before the masking's
+SOLVE_KIDS = {"dense": ["solve.damp", "solve.factor", "solve.tri"],
+              "schur": ["solve.damp", "solve.factor", "solve.tri", "solve.tri"]}
 LIN_KIDS = ["lin.photo", "lin.geo", "lin.reproj", "lin.priors"]
 BLOCK_KIDS = {"lin.photo": ["graph.scatter_hessian"], "lin.geo": ["graph.scatter_hessian"],
               "lin.reproj": [], "lin.priors": ["graph.scatter_hessian"] * 3}
@@ -292,6 +297,8 @@ def test_run_ba_spans_under_the_cpu_profiler(tmp_path):
             assert [k.name for k in kids[block.id]] == BLOCK_KIDS[block.name]
         assert [k.counts.get("edges") for k in kids[lin.id]] == [6, 6, None, None]
         assert kids[it.id][1].counts == {"lm.host_reads": 1}
+        solve = kids[it.id][2]
+        assert [k.name for k in kids[solve.id]] == SOLVE_KIDS["dense"]
     entries = Counter()
     for r in recs:
         entries.update(r.counts)
@@ -312,4 +319,41 @@ def test_run_ba_spans_under_the_cpu_profiler(tmp_path):
     uncovered = [e["name"] for e in ops if not any(
         float(a["ts"]) <= float(e["ts"]) and float(e["ts"]) + float(e["dur"]) <= float(a["ts"]) + float(a["dur"])
         for a in inner)]
+    assert uncovered == []
+
+
+@pytest.mark.parametrize("solver", ["dense", "schur"])
+def test_the_solve_spans_cover_lm_solve(tmp_path, solver):
+    """On both solver paths ``lm.solve`` holds ``solve.damp``, ``solve.factor``
+    and ``solve.tri``; every ATen op inside an ``lm.solve`` annotation lies
+    inside one of its ``solve.*`` annotations, so the three spans' device
+    time adds up to ``lm.solve``'s."""
+    step = bench_step(iters=2, solver=solver)
+    step()
+    timing.enable(True)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _, _, iters, _ = step()
+    timing.enable(False)
+    recs = timing.records()
+    kids = defaultdict(list)
+    for r in sorted(recs, key=lambda r: r.start_ns):
+        kids[r.parent].append(r)
+    solves = by_name(recs)["lm.solve"]
+    assert len(solves) == iters == 2
+    for solve in solves:
+        assert [k.name for k in kids[solve.id]] == SOLVE_KIDS[solver]
+        assert all(not kids[k.id] for k in kids[solve.id])
+
+    _, events = chrome_trace(prof, tmp_path)
+    ann = annotations(events)
+    inner = [a for a in ann if a["name"].startswith("solve.")]
+    ops = [e for e in events if e.get("ph") == "X" and e.get("cat") == "cpu_op"
+           and e["name"].startswith("aten::")
+           and any(a["name"] == "lm.solve" and a["tid"] == e["tid"]
+                   and float(a["ts"]) <= float(e["ts"]) <= float(a["ts"]) + float(a["dur"])
+                   for a in ann)]
+    assert any(e["name"] == "aten::linalg_cholesky_ex" for e in ops)
+    uncovered = [e["name"] for e in ops if not any(
+        a["tid"] == e["tid"] and float(a["ts"]) <= float(e["ts"])
+        and float(e["ts"]) + float(e["dur"]) <= float(a["ts"]) + float(a["dur"]) for a in inner)]
     assert uncovered == []
